@@ -5,11 +5,14 @@
 
 Builds the hand-written kernels from ``conditioned_diffusion_models_uad_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card,
-then drives the port's main path: the flagship cDDPM single-shot volume
-reconstruction (``DDPMTask.reconstruct_with_aux``, experiment
-cDDPM/DDPM_cond_spark_2D). Every phase prints one JSON line; any failed check
-raises, so the process exits non-zero. The last line is the device line
-``{"ok": true, "device": {...}}``.
+then drives the port's paths (experiment cDDPM/DDPM_cond_spark_2D): the
+flagship single-shot volume reconstruction (``DDPMTask.reconstruct_with_aux``),
+the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
+(``fused_groupnorm_silu``), and the flagship train step
+(``train/loop.py::train_step``). Each path is driven with the kernels' launch
+counters set to 0 just before it and read just after. Every phase prints one
+JSON line; any failed check raises, so the process exits non-zero. The last
+line is the device line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or run from a directory that holds no port package, it exits
 non-zero before printing any result.
@@ -17,6 +20,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,10 +39,32 @@ FP32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores
 # ~35 for the cell geometry and vertex selection, 3 for the accumulation)
 K1_OPS_PER_PIXEL_OCTAVE = 158
 
+# K3: float operations per element, counted from csrc/fused_norm.cu (stats:
+# square, round, two adds; apply: multiply, add, two roundings; SiLU: exp,
+# add, divide, two roundings)
+K3_OPS_PER_ELEMENT = {True: 13, False: 8}
+
 TOL_K1 = 1e-5
 TOL_K2 = {"bfloat16": 2e-2, "float32": 1e-5}
+# K3: tests/test_fused_norm.py's tolerances, as allclose (atol, rtol)
+TOL_K3 = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
 TOL_SLICE_FP32 = 2e-3
-
+# train_correctness, card vs CPU in float32 (TF32 off), batch 4: each of two
+# steps from a common state (the CPU takes the card's weights, running
+# statistics and Adam moments before the step) and with the CPU replaying
+# the card's piecewise choices: the encoder's ReLU signs and max-pool
+# argmaxes and the L1 loss's error signs (utils/decisions.py: a choice within
+# rounding of its threshold that goes the other way moves whole gradient
+# tensors by up to a few percent). Limits: loss and running
+# statistics (norm-relative) at the one-step tolerances of
+# tests/test_torch_train.py; 1e-3 norm-relative for each gradient tensor of
+# either network; Adam's update scales with the gradient's relative error, so
+# parameters at most lr * 1e-3 apart on average, and at most 1e-3 of them
+# more than lr/10 apart (an entry whose gradient lies within its error of 0
+# can land up to 2 * lr apart); at most 1e-4 of the choices that the CPU
+# would have made otherwise.
+TRAIN_TOL = {"loss": 1e-5, "grad_encoder": 1e-3, "grad_unet": 1e-3, "stats": 1e-4,
+             "param_mean": 1e-7, "param_share": 1e-3, "flipped_share": 1e-4}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -203,11 +229,125 @@ def phase_k2():
     return recs[0]
 
 
+def k3_record(x, gamma, beta, film, apply_silu=True, groups=32):
+    import torch
+    import torch.nn.functional as F
+
+    from conditioned_diffusion_models_uad_torch.ops.fused_norm import (
+        fused_groupnorm_silu,
+        groupnorm_silu_reference,
+    )
+
+    b, n, c = x.shape
+    dtype = str(x.dtype).replace("torch.", "")
+    got = fused_groupnorm_silu(x, gamma, beta, film, groups=groups, apply_silu=apply_silu)
+
+    def plain():
+        return groupnorm_silu_reference(x, gamma, beta, film, groups=groups,
+                                        apply_silu=apply_silu)
+
+    want = plain().float()
+    torch.cuda.synchronize()
+    atol, rtol = TOL_K3[dtype]
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    # allclose as a ratio: <= 1 passes
+    ratio = (diff / (atol + rtol * want.abs())).max().item()
+    del want, diff
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (2 * c + (0 if film is None
+                                                              else 2 * film[0].numel()))
+    ops = K3_OPS_PER_ELEMENT[apply_silu] * x.numel()
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {
+        "name": "fused_groupnorm_silu", "route": "cuda",
+        "source": f"{PKG}/csrc/fused_norm.cu",
+        "replaces": "conditioned_diffusion_models_uad_tpu/ops/fused_norm.py:96",
+        "shape": [b, n, c], "dtype": dtype, "groups": groups,
+        "film_rows": None if film is None else film[0].shape[0], "silu": apply_silu,
+        "launches": None, "max_abs_err": err, "tol_atol_rtol": [atol, rtol],
+        "allclose_ratio": ratio,
+        "ms": cuda_ms(lambda: fused_groupnorm_silu(x, gamma, beta, film, groups=groups,
+                                                   apply_silu=apply_silu), reps=20),
+        "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+    side = int(round(n ** 0.5))
+    if side * side == n:
+        # F.group_norm on the channels_last NCHW view: GN and affine only, no
+        # FiLM and no SiLU, so it computes less than the kernel
+        xv = x.view(b, side, side, c).permute(0, 3, 1, 2)
+        g, bt = gamma.to(x.dtype), beta.to(x.dtype)
+        rec["library_ms"] = cuda_ms(lambda: F.group_norm(xv, groups, g, bt, 1e-6), reps=10)
+        rec["library_call"] = "F.group_norm, channels_last (GN + affine only)"
+    return rec
+
+
+def phase_k3():
+    """K3 on its own path, the op's entry point at the UNet's three norm-site
+    shapes (tools/bench_fused_norm.py: batch 288, bf16, FiLM [288, C] f32,
+    SiLU on), with the launch counter set to 0 just before and read just
+    after each call; then each call's result against the plain version, and
+    two small cases (f32 with FiLM [1, C]; bf16 without FiLM or SiLU at C = 36,
+    which takes the kernel's scalar path)."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.ops.fused_norm import fused_groupnorm_silu
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(shape, dtype, film_rows):
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        film = None
+        if film_rows:
+            film = tuple(0.1 * torch.randn((film_rows, c), generator=g, device="cuda")
+                         for _ in range(2))
+        return x, gamma, beta, film
+
+    tool_shapes = [(288, 96, 96, 128), (288, 48, 48, 256), (288, 24, 24, 256)]
+    recs = []
+    for shape in tool_shapes:
+        x, gamma, beta, film = inputs(shape, torch.bfloat16, shape[0])
+        fused_groupnorm_silu.launches = 0
+        y = fused_groupnorm_silu(x, gamma, beta, film)
+        torch.cuda.synchronize()
+        launches = fused_groupnorm_silu.launches
+        require(launches == 1, f"K3 {shape}: {launches} launches in one call")
+        require(y.shape == x.shape and y.dtype == x.dtype, f"K3 {shape} output")
+        require(bool(torch.isfinite(y).all()), f"K3 {shape} output not finite")
+        del y
+        b, h, w, c = shape
+        rec = k3_record(x.view(b, h * w, c), gamma, beta, film)
+        rec["launches"] = launches
+        recs.append(rec)
+        del x
+        torch.cuda.empty_cache()
+    for shape, dtype, film_rows, silu, groups in (
+            ((4, 24, 24, 128), torch.float32, 1, True, 32),
+            ((3, 10, 10, 36), torch.bfloat16, 0, False, 12)):
+        x, gamma, beta, film = inputs(shape, dtype, film_rows)
+        b, h, w, c = shape
+        recs.append(k3_record(x.view(b, h * w, c), gamma, beta, film, apply_silu=silu,
+                              groups=groups))
+    for rec in recs:
+        require(rec["allclose_ratio"] <= 1.0,
+                f"K3 {rec['shape']} {rec['dtype']} err {rec['max_abs_err']} "
+                f"(allclose ratio {rec['allclose_ratio']})")
+    emit({"phase": "k3", "results": recs})
+    return recs[0]
+
+
 def kernel_kind(name: str) -> str:
     """Coarse class of a CUDA kernel, from its name."""
     low = name.lower()
     for kind, marks in (("K2 attention", ("attention_fwd_kernel",)),
                         ("K1 noise", ("fractal_noise_kernel",)),
+                        ("K3 norm", ("gn_stats_kernel", "gn_apply_kernel")),
                         ("upsample/pool", ("upsample", "pool")),
                         ("convolution", ("conv", "xmma", "implicit", "cudnn",
                                          "fprop")),
@@ -218,6 +358,38 @@ def kernel_kind(name: str) -> str:
         if any(m in low for m in marks):
             return kind
     return "other"
+
+
+def _kernel_events(prof):
+    """The profile's device kernels: CUDA events with device time, without
+    user annotations (``Optimizer.step#Adam.step`` spans the kernels it
+    launches and would count them twice)."""
+    import torch
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
+
+
+def _launch_counters():
+    from conditioned_diffusion_models_uad_torch.ops.attention import fused_attention
+    from conditioned_diffusion_models_uad_torch.ops.fused_norm import fused_groupnorm_silu
+    from conditioned_diffusion_models_uad_torch.ops.simplex_hash import fractal_noise_2d
+
+    return {"fractal_noise_2d": fractal_noise_2d, "fused_attention": fused_attention,
+            "fused_groupnorm_silu": fused_groupnorm_silu}
+
+
+def _zero_launches():
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _read_launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
 
 
 def _flagship_task(device, **kw):
@@ -277,29 +449,24 @@ def phase_full_size():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from conditioned_diffusion_models_uad_torch.ops.attention import fused_attention
-    from conditioned_diffusion_models_uad_torch.ops.simplex_hash import fractal_noise_2d
-
     task = _flagship_task("cuda")  # DDPMTaskConfig() defaults: bf16, compute norms
     g = torch.Generator(device="cuda").manual_seed(3)
     depth, groups = 192, 2
     slices = torch.rand((depth, 96, 96, 1), generator=g, device="cuda")
     seed_gen = torch.Generator().manual_seed(4)
 
-    fractal_noise_2d.launches = 0
-    fused_attention.launches = 0
+    counters = _zero_launches()
     reco, aux = task.reconstruct_with_aux(slices, generator=seed_gen, groups=groups)
     torch.cuda.synchronize()
-    launches = {"fractal_noise_2d": fractal_noise_2d.launches,
-                "fused_attention": fused_attention.launches}
+    launches = _read_launches(counters)
     require(reco.shape == (depth, 96, 96, 1), f"reco shape {tuple(reco.shape)}")
     require(bool(torch.isfinite(reco).all()), "bf16 reconstruction not finite")
     require(reco.float().std().item() > 1e-3, "bf16 reconstruction is constant")
     require(aux["loss_per_slice"].shape == (depth,)
             and bool(torch.isfinite(aux["loss_per_slice"]).all()), "loss_per_slice")
     require(aux["latent_per_slice"].shape == (depth, 128), "latent_per_slice")
-    for name, n in launches.items():
-        require(n >= 1, f"{name} was not launched on the main path")
+    for name in ("fractal_noise_2d", "fused_attention"):
+        require(launches[name] >= 1, f"{name} was not launched on the main path")
 
     e = task.cfg.ensemble_size
     reps = 5
@@ -326,9 +493,7 @@ def phase_full_size():
         task.reconstruct_with_aux(slices, generator=seed_gen, groups=groups)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0]
+    kernels = _kernel_events(prof)
     busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
     by_kind = {}
     for ev in kernels:
@@ -355,6 +520,229 @@ def phase_full_size():
     return launches
 
 
+def _train_setup(b, device, seed):
+    """Random volumes [8, 96, 96, 40] on ``device``, one batch's slice
+    indices, and the generator that made them."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    vols = torch.rand((8, 96, 96, 40), generator=g, device=device)
+    vi = torch.randint(0, 8, (b,), generator=g, device=device)
+    si = torch.randint(0, 40, (b,), generator=g, device=device)
+    return (vols, None), vi, si, g
+
+
+def _running_stats(task):
+    return {k: v.detach().clone() for k, v in task.state_dict().items() if "running" in k}
+
+
+def _train_one(task, opt, data, vi, si, draws, choices, replay):
+    """One train step on the task's device, recording its piecewise choices
+    into ``choices`` or replaying them: the loss, the gradients, parameters
+    and running statistics after the step, and the count of replayed
+    choices."""
+    from conditioned_diffusion_models_uad_torch.train.loop import train_step
+    from conditioned_diffusion_models_uad_torch.utils.decisions import recorded_choices
+
+    dev = task.device
+    with recorded_choices(choices, replay=replay) as count:
+        loss = train_step(task, opt, (data[0].to(dev), None), vi.to(dev), si.to(dev), draws)
+    return dict(loss=loss.item(), count=count,
+                grads={n: p.grad.detach().double().cpu() for n, p in task.named_parameters()},
+                params={n: p.detach().double().cpu() for n, p in task.named_parameters()},
+                stats={k: v.double().cpu() for k, v in _running_stats(task).items()})
+
+
+def _train_spread(a, b, lr):
+    """How far step ``a`` is from step ``b``."""
+    import torch
+
+    def normrel(x, y):
+        return ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+
+    d = torch.cat([(a["params"][n] - v).abs().reshape(-1) for n, v in b["params"].items()])
+    out = {"loss": abs(a["loss"] - b["loss"]),
+           "stats": max(normrel(a["stats"][k], v) for k, v in b["stats"].items()),
+           "param_mean": d.mean().item(), "param_share": (d > lr / 10).double().mean().item(),
+           "flipped_share": b["count"]["flipped"] / b["count"]["made"]}
+    for net in ("encoder", "unet"):
+        worst = max((normrel(a["grads"][n], v), n) for n, v in b["grads"].items()
+                    if n.startswith(net + "."))
+        out[f"grad_{net}"], out[f"grad_{net}_worst"] = worst
+    return out
+
+
+def phase_train_correctness():
+    """The flagship config in float32 (TF32 off) at batch 4, from the same
+    seeded weights, slices and draws: two train steps on the card, each
+    repeated on the CPU from the card's state before it (weights, running
+    statistics, Adam moments) with the card's piecewise choices; losses,
+    gradients, and parameters and running statistics after the Adam step."""
+    import copy
+
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.train.loop import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = 4
+    data, vi, si, g = _train_setup(b, "cpu", 6)
+    cpu_task = _flagship_task("cpu", dtype="float32")
+    draws = [cpu_task.draw_train(g, b) for _ in range(2)]
+    card_task = _flagship_task("cuda", dtype="float32")
+    card_opt, cpu_opt = make_optimizer(card_task), make_optimizer(cpu_task)
+    steps, secs = [], {"cuda": 0.0, "cpu": 0.0}
+    for dr in draws:
+        state = {k: v.detach().cpu().clone() for k, v in card_task.state_dict().items()}
+        opt_state = copy.deepcopy(card_opt.state_dict())
+        choices = []
+        t0 = time.perf_counter()
+        card = _train_one(card_task, card_opt, data, vi, si, dr, choices, replay=False)
+        t1 = time.perf_counter()
+        cpu_task.load_state_dict(state)
+        cpu_opt.load_state_dict(opt_state)
+        cpu = _train_one(cpu_task, cpu_opt, data, vi, si, dr, choices, replay=True)
+        secs["cuda"] += t1 - t0
+        secs["cpu"] += time.perf_counter() - t1
+        steps.append({"loss_cuda": card["loss"], "loss_cpu": cpu["loss"],
+                      "choices": cpu["count"],
+                      "card_vs_cpu": _train_spread(card, cpu, card_task.cfg.lr)})
+    emit({"phase": "train_correctness",
+          "config": "DDPMTaskConfig(dtype='float32'), TF32 off", "batch": b,
+          "steps": steps, "limit": TRAIN_TOL, "cuda_s": secs["cuda"], "cpu_s": secs["cpu"]})
+    for i, st in enumerate(steps):
+        require(math.isfinite(st["loss_cuda"]), f"card train loss not finite at step {i}")
+        for k, lim in TRAIN_TOL.items():
+            v = st["card_vs_cpu"][k]
+            require(v <= lim, f"card vs CPU at step {i}: {k} {v} > {lim}")
+
+
+def phase_train_full_size():
+    """The flagship train step at full size: DDPMTaskConfig() defaults (bf16,
+    compute norms, fused attention), batch 32 (configs/datamodule/IXI.yaml),
+    slices gathered from random volumes on the card, aug_intensity on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from conditioned_diffusion_models_uad_torch.train.loop import (
+        gathered_batch,
+        make_optimizer,
+        train_step,
+    )
+
+    b = 32
+    task = _flagship_task("cuda")
+    opt = make_optimizer(task)
+    data, vi, si, g = _train_setup(b, "cuda", 7)
+
+    def step():
+        return train_step(task, opt, data, vi, si, task.draw_train(g, b))
+
+    for _ in range(3):
+        loss = step()
+    require(math.isfinite(loss.item()), "train loss not finite")
+
+    n_count = 5
+    counters = _zero_launches()
+    for _ in range(n_count):
+        loss = step()
+    torch.cuda.synchronize()
+    launches = _read_launches(counters)
+    per_step = {k: v / n_count for k, v in launches.items()}
+    for name in ("fractal_noise_2d", "fused_attention"):
+        require(per_step[name] >= 1, f"{name} was not launched on every train step")
+
+    reps = 20
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss = step()
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / reps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # layer times: the train step's pieces between CUDA events
+    parts = {"gather_augment": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    n_parts = 5
+    for _ in range(n_parts):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        draws = task.draw_train(g, b)
+        ev[0].record()
+        batch = gathered_batch(data, vi, si, draws.aug)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = task.loss(batch, draws, train=True)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / n_parts
+
+    torch.cuda.synchronize()
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _kernel_events(prof)
+    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    by_kind = {}
+    for ev in kernels:
+        kind = kernel_kind(ev.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3 / n_prof
+    kernels.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+    top = [{"name": ev.key[:90], "kind": kernel_kind(ev.key),
+            "ms_per_step": ev.self_device_time_total / 1e3 / n_prof,
+            "calls_per_step": ev.count / n_prof}
+           for ev in kernels[:12]]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_train_step.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+
+    # learning: one repeated batch; the loss at one fixed set of draws (train
+    # mode, running statistics restored after each reading) must fall
+    fixed = task.draw_train(g, b)
+
+    def fixed_loss():
+        stats = _running_stats(task)
+        with torch.no_grad():
+            value = task.loss(gathered_batch(data, vi, si, fixed.aug), fixed)[0].item()
+        task.load_state_dict(stats, strict=False)
+        return value
+
+    n_learn = 50
+    before = fixed_loss()
+    learn_losses = [step().item() for _ in range(n_learn)]
+    after = fixed_loss()
+    emit({"phase": "train_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "DDPMTaskConfig() (bf16, norm_precision=compute, fused_attention), "
+                    "Adam lr 1e-4, aug_intensity",
+          "batch": b, "launches_per_step": per_step, "s_per_step": s_per_step,
+          "train_slices_per_sec": b / s_per_step, "layer_ms": parts,
+          "peak_memory_gb": peak_gb,
+          "profiled_steps": n_prof, "profiled_wall_ms": wall_ms,
+          "profiled_kernel_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+          # the profiler slows the host; against the unprofiled step time
+          "device_idle_share_unprofiled": max(0.0, 1.0 - busy_ms / n_prof
+                                              / (s_per_step * 1e3)),
+          "kernel_ms_per_step_by_kind": by_kind, "top_kernels": top,
+          "fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
+          "learn_steps": n_learn, "learn_loss_first_last": [learn_losses[0],
+                                                             learn_losses[-1]]})
+    require(all(math.isfinite(v) for v in learn_losses), "train loss not finite")
+    require(after < before, f"fixed-draw loss did not fall: {before} -> {after}")
+    return per_step
+
+
 def main() -> int:
     try:
         import torch
@@ -372,11 +760,19 @@ def main() -> int:
     phase_device()
     k1 = phase_k1()
     k2 = phase_k2()
+    k3 = phase_k3()
     phase_slice_correctness()
     launches = phase_full_size()
+    phase_train_correctness()
+    train_launches = phase_train_full_size()
     k1["launches"] = launches["fractal_noise_2d"]
     k2["launches"] = launches["fused_attention"]
-    emit({"kernels": [k1, k2]})
+    for rec, name in ((k1, "fractal_noise_2d"), (k2, "fused_attention"),
+                      (k3, "fused_groupnorm_silu")):
+        rec["launches_by_path"] = {"reconstruct_call": launches[name],
+                                   "train_step": train_launches[name]}
+    k3["launches_by_path"]["fused_groupnorm_silu_call"] = k3["launches"]
+    emit({"kernels": [k1, k2, k3]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the conditioned-diffusion anomaly-detection system.
 
-This package runs the cDDPM single-shot volume reconstruction on an NVIDIA
-Hopper card. It mirrors the module paths and names of the JAX package
+This package runs the cDDPM single-shot volume reconstruction and the cDDPM
+train step (augmentation, loss, backward, Adam) on an NVIDIA Hopper card. It mirrors the module paths and names of the JAX package
 ``conditioned_diffusion_models_uad_tpu`` so each counterpart is easy to find,
 but imports nothing from it (nor ``jax``/``flax``).
 
@@ -16,7 +16,7 @@ Layouts:
   convolutions.
 
 Devices: entry points run on ``cuda`` unless the caller passes
-``device="cpu"`` (see ``utils.device``). The two hand-written kernels
-(``csrc/simplex_noise.cu``, ``csrc/attention.cu``) launch for CUDA tensors;
-their plain PyTorch versions serve CPU tensors only.
+``device="cpu"`` (see ``utils.device``). The three hand-written kernels
+(``csrc/simplex_noise.cu``, ``csrc/attention.cu``, ``csrc/fused_norm.cu``)
+launch for CUDA tensors; their plain PyTorch versions serve CPU tensors only.
 """

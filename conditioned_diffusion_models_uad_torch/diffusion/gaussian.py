@@ -1,4 +1,4 @@
-"""Gaussian diffusion: forward corruption and the eval-forward objective
+"""Gaussian diffusion: forward corruption and the training/eval objective
 (counterpart of ``conditioned_diffusion_models_uad_tpu/diffusion/gaussian.py``
 :76-253).
 
@@ -13,6 +13,7 @@ import dataclasses
 from typing import Callable, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from .schedule import DiffusionSchedule, extract
 
@@ -107,7 +108,8 @@ def p_losses(
     target = noise if cfg.objective == "pred_noise" else x_start
 
     err = model_out - target
-    per_pixel = err.abs() if cfg.loss_type == "l1" else err * err
+    per_pixel = (F.l1_loss(model_out, target, reduction="none") if cfg.loss_type == "l1"
+                 else err * err)
     per_sample = per_pixel.reshape(per_pixel.shape[0], -1).mean(dim=1)
     per_sample = per_sample * sched.p2_loss_weight[t]
     loss = per_sample.mean() if reduce else per_sample
@@ -127,15 +129,23 @@ def diffusion_call(
     model_fn: ModelFn,
     img01: torch.Tensor,  # [B,H,W,C] in [0,1]
     *,
-    t: Union[int, torch.Tensor],
+    t: Optional[Union[int, torch.Tensor]],
     cond: Optional[torch.Tensor],
     noise: torch.Tensor,
     reduce: bool = True,
+    generator: Optional[torch.Generator] = None,
 ):
-    """The eval forward at a fixed t (an int broadcast over the batch, or a
-    [B] vector): map the image to [-1,1], then compute ``p_losses``."""
+    """Map the image to [-1,1], then compute ``p_losses`` at t: an int
+    broadcast over the batch or a [B] vector (eval, or training with t drawn
+    by the caller), or ``None`` for training, where t is drawn uniform in
+    [0, timesteps) from ``generator``."""
     b = img01.shape[0]
-    if isinstance(t, int):
+    if t is None:
+        if generator is None:
+            raise ValueError("t=None draws t for training and needs a torch.Generator")
+        t_vec = torch.randint(0, sched.num_timesteps, (b,), generator=generator,
+                              device=generator.device).to(img01.device)
+    elif isinstance(t, int):
         t_vec = torch.full((b,), t, dtype=torch.long, device=img01.device)
     else:
         t_vec = t.to(device=img01.device, dtype=torch.long)

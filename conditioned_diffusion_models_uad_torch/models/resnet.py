@@ -1,12 +1,14 @@
 """ResNet conditioning encoder (counterpart of
-``conditioned_diffusion_models_uad_tpu/models/resnet.py``), eval mode.
+``conditioned_diffusion_models_uad_tpu/models/resnet.py``), eval and
+training mode.
 
 Parameter names follow torchvision (``conv1``/``bn1``/``layerX.i.convJ``/
 ``bnJ``/``downsample.{0,1}``/``fc``), so the JAX package's
 ``convert_reference_resnet_state_dict`` reads this module's ``state_dict``.
-``MaskedBatchNorm`` follows flax, not ``nn.BatchNorm2d``: eps 1e-5, running
+``MaskedBatchNorm`` follows flax, not ``nn.BatchNorm2d``: eps 1e-5, biased
+batch variance, running statistics updated as ``0.9*ra + 0.1*batch``, and the
 statistics applied in float32 or folded into one compute-dtype ``x*a+b``.
-Training-mode statistics and the SparK active-site mask are not ported yet.
+The SparK active-site mask is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,9 +20,13 @@ from torch import nn
 
 from .unet import Conv2d, Linear
 
+MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
+
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm from running statistics (``mask=None``, eval mode)."""
+    """BatchNorm (``mask=None``). Eval mode applies the running statistics;
+    training mode applies the batch's float32 mean and biased variance and
+    moves the running statistics toward them."""
 
     def __init__(self, channels: int, *, dtype: torch.dtype = torch.float32,
                  fold_apply: bool = False, eps: float = 1e-5):
@@ -35,8 +41,14 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError("training-mode batch statistics are not ported yet")
-        mean, var = self.running_mean, self.running_var
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            with torch.no_grad():
+                self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)
+                self.running_var.copy_(MOMENTUM * self.running_var + (1 - MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         if self.fold_apply:
             a = torch.rsqrt(var + self.eps) * self.weight
             b = self.bias - mean * a

@@ -1,14 +1,15 @@
 """The cDDPM task: conditioning encoder + UNet + schedule, with the
-single-shot volume reconstruction the eval (and serving) path runs
-(counterpart of ``DDPMTaskConfig``/``DDPMTask`` in
+single-shot volume reconstruction the eval (and serving) path runs and the
+training objective (counterpart of ``DDPMTaskConfig``/``DDPMTask`` in
 ``conditioned_diffusion_models_uad_tpu/models/tasks.py``).
 
 Where the JAX task takes a PRNG key ([2], or [G, 2] for G grouped volumes),
-this one takes explicit simplex seeds ``[G, E]`` (int32, one per volume and
-noise draw) or a ``torch.Generator`` from which it draws them, uniform in
-[0, 2**31 - 1) like ``randint(key, (), 0, int32max)`` in the JAX package.
+this one takes explicit draws: for a reconstruction, simplex seeds ``[G, E]``
+(int32, one per volume and noise draw) or a ``torch.Generator`` from which it
+draws them, uniform in [0, 2**31 - 1) like ``randint(key, (), 0, int32max)``
+in the JAX package; for a training step, a ``TrainDraws``.
 Not ported yet: the iterative samplers (``reco_mode`` 'ancestral'/'ddim'),
-the training loss, and the patched (pDDPM) variant.
+UNet dropout in training, and the patched (pDDPM) variant.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..data.augment import AugDraws, draw_aug_intensity
 from ..diffusion import GaussianDiffusionConfig, diffusion_call, make_schedule
 from ..ops.simplex import make_noise_fn
 from ..utils.device import DeviceLike, resolve_device
@@ -60,6 +62,7 @@ class DDPMTaskConfig:
     norm_precision: str = "compute"
     film_fold: bool = False
     dtype: str = "bfloat16"
+    lr: float = 1e-4  # Adam (train/loop.py::make_optimizer)
 
     def __post_init__(self):
         bad = [t for t in (*self.step_ensemble, self.test_timesteps)
@@ -99,13 +102,29 @@ class DDPMTaskConfig:
         return 1
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainDraws:
+    """The random draws of one training step: t [B] in [0, timesteps), one
+    simplex seed [1] int32 (one noise field per step, broadcast over the
+    batch) and the augmentation draws (None: no augmentation)."""
+
+    t: torch.Tensor
+    seed: torch.Tensor
+    aug: Optional[AugDraws] = None
+
+
 class DDPMTask(nn.Module):
-    """The conditioned-DDPM anomaly-detection task, eval mode.
+    """The conditioned-DDPM anomaly-detection task.
 
     ``DDPMTask(cfg)`` runs on ``cuda``; ``device="cpu"`` runs on the CPU.
     Weights start as in the JAX package's ``init`` layout (zero output convs,
     BN stats mean 0 / var 1); load trained ones with ``load_state_dict`` (see
-    ``utils/convert_jax.py``)."""
+    ``utils/convert_jax.py``). The module stays in eval mode; ``encode`` and
+    ``loss`` put the encoder's BatchNorm in the mode their ``train`` argument
+    asks for during the call and restore the previous mode after it, as the
+    JAX task passes ``train`` to each apply, so no result depends on
+    ``nn.Module.train``/``eval``; the UNet has no mode (its dropout in
+    training is not ported)."""
 
     def __init__(self, cfg: DDPMTaskConfig = DDPMTaskConfig(),
                  device: DeviceLike = None):
@@ -130,19 +149,54 @@ class DDPMTask(nn.Module):
         self.noise_fn = make_noise_fn(cfg.noisetype, cfg.simplex_octaves,
                                       cfg.simplex_persistence, cfg.simplex_frequency)
 
-    @torch.no_grad()
-    def encode(self, x01: torch.Tensor) -> Optional[torch.Tensor]:
+    def encode(self, x01: torch.Tensor, *, train: bool = False) -> Optional[torch.Tensor]:
         """Clean slices [B, H, W, 1] -> conditioning vector [B, cond_dim] f32
-        (None when unconditional)."""
+        (None when unconditional). ``train=True`` normalises with batch
+        statistics and updates the running ones."""
         if self.encoder is None:
             return None
-        return self.encoder(x01.to(self.device))
+        mode = self.encoder.training
+        self.encoder.train(train)
+        try:
+            return self.encoder(x01.to(self.device))
+        finally:
+            self.encoder.train(mode)
 
     def draw_seeds(self, generator: torch.Generator, groups: int = 1) -> torch.Tensor:
         """Simplex seeds [groups, E] uniform in [0, 2**31 - 1)."""
         return torch.randint(0, INT32_MAX, (groups, self.cfg.ensemble_size),
                              generator=generator, dtype=torch.int32,
                              device=generator.device)
+
+    def draw_train(self, generator: torch.Generator, b: int, *,
+                   augment: bool = True) -> TrainDraws:
+        """One training step's draws for a batch of ``b``, on the generator's
+        device: t uniform in [0, timesteps), one seed uniform in
+        [0, 2**31 - 1), and the aug_intensity draws when ``augment``."""
+        dev = generator.device
+        seed = torch.randint(0, INT32_MAX, (1,), generator=generator, dtype=torch.int32,
+                             device=dev)
+        t = torch.randint(0, self.cfg.timesteps, (b,), generator=generator, device=dev)
+        aug = draw_aug_intensity(generator, b) if augment else None
+        return TrainDraws(t, seed, aug)
+
+    def loss(self, batch: dict, draws: TrainDraws, *, train: bool = True):
+        """The training (``train=True``) or validation objective on a batch
+        ``{'vol': [B, H, W, 1] in [0, 1]}`` at the draws' t and noise seed.
+        Returns (scalar loss, {'reco': [B, H, W, 1]}). Training normalises
+        the encoder with batch statistics and updates its running ones;
+        validation uses the running ones. Gradients flow to every parameter;
+        augmentation is the caller's (``train/loop.py``)."""
+        cfg = self.cfg
+        if train and cfg.dropout_unet > 0:
+            raise NotImplementedError("UNet dropout in training is not ported yet")
+        x01 = batch["vol"].to(self.device).float()
+        cond = self.encode(x01, train=train)
+        seed = draws.seed.reshape(1).to(device=self.device, dtype=torch.int32)
+        noise = self.noise_fn(seed, tuple(x01.shape))
+        loss, reco = diffusion_call(self.sched, self.gd_cfg, self.unet, x01,
+                                    t=draws.t.to(self.device), cond=cond, noise=noise)
+        return loss, {"reco": reco}
 
     @torch.no_grad()
     def reconstruct(self, slices01, seeds=None, *, generator=None, groups: int = 1):

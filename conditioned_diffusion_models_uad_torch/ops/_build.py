@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 SOURCES: Dict[str, list] = {
     "simplex_noise": ["-fmad=false"],
     "attention": [],
+    "fused_norm": [],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

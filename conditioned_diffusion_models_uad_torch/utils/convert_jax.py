@@ -10,10 +10,14 @@ and ``convert_reference_resnet_state_dict`` (``utils/convert_torch.py``):
     norms   flax scale/bias      -> torch weight/bias (+ running_mean/var)
     attention qkv flax Dense [C, 3C] (qkv-major) -> Conv1d [3C, C, 1]
             (head-major), proj_out Dense [C, C] -> Conv1d [C, C, 1]
+
+Every map is a linear re-indexing, so a tree shaped like the params
+(gradients, Adam moments) converts the same way (``convert_jax_ddpm_params``,
+``convert_jax_adam_state``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -123,34 +127,41 @@ def convert_jax_unet_params(params: dict, cfg: UNetConfig) -> Dict[str, torch.Te
 
 
 def convert_jax_resnet_variables(
-    params: dict, batch_stats: dict, variant: str
+    params: dict, batch_stats: Optional[dict], variant: str
 ) -> Dict[str, torch.Tensor]:
     """JAX ``ResNetEncoder`` params/batch_stats (the trees holding 'backbone'
-    and, when present, 'fc') -> ``ResNetEncoder`` state_dict."""
+    and, when present, 'fc') -> ``ResNetEncoder`` state_dict. With
+    ``batch_stats=None`` only the parameters are converted."""
     block_cls, stage_sizes, _ = _VARIANTS[variant]
     n_convs = 3 if block_cls.expansion == 4 else 2
-    bk, bks = params["backbone"], batch_stats["backbone"]
+    bk = params["backbone"]
+    bks = None if batch_stats is None else batch_stats["backbone"]
     sd: Dict[str, torch.Tensor] = {}
 
     def put_bn(key, p, s):
         sd[f"{key}.weight"] = _t(p["scale"])
         sd[f"{key}.bias"] = _t(p["bias"])
-        sd[f"{key}.running_mean"] = _t(s["mean"])
-        sd[f"{key}.running_var"] = _t(s["var"])
+        if s is not None:
+            sd[f"{key}.running_mean"] = _t(s["mean"])
+            sd[f"{key}.running_var"] = _t(s["var"])
+
+    def stats(name):
+        return None if bks is None else bks[name]
 
     _conv(sd, "conv1", bk["stem_conv"], bias=False)
-    put_bn("bn1", bk["stem_bn"], bks["stem_bn"])
+    put_bn("bn1", bk["stem_bn"], stats("stem_bn"))
     for si, n_blocks in enumerate(stage_sizes):
         for bi in range(n_blocks):
             t = f"layer{si + 1}.{bi}"
             name = f"stage{si + 1}_block{bi}"
-            p, s = bk[name], bks[name]
+            p, s = bk[name], stats(name)
             for j in range(1, n_convs + 1):
                 _conv(sd, f"{t}.conv{j}", p[f"conv{j}"], bias=False)
-                put_bn(f"{t}.bn{j}", p[f"bn{j}"], s[f"bn{j}"])
+                put_bn(f"{t}.bn{j}", p[f"bn{j}"], None if s is None else s[f"bn{j}"])
             if "down_conv" in p:
                 _conv(sd, f"{t}.downsample.0", p["down_conv"], bias=False)
-                put_bn(f"{t}.downsample.1", p["down_bn"], s["down_bn"])
+                put_bn(f"{t}.downsample.1", p["down_bn"],
+                       None if s is None else s["down_bn"])
     if "fc" in params:
         _dense(sd, "fc", params["fc"])
     return sd
@@ -159,12 +170,37 @@ def convert_jax_resnet_variables(
 def convert_jax_ddpm_variables(variables: dict, task_cfg) -> Dict[str, torch.Tensor]:
     """JAX ``DDPMTask`` variables ({'params': {'unet', 'encoder'},
     'batch_stats': {'encoder'}}) -> the port's ``DDPMTask`` state_dict."""
+    return convert_jax_ddpm_params(variables["params"], task_cfg, variables["batch_stats"])
+
+
+def convert_jax_ddpm_params(params: dict, task_cfg,
+                            batch_stats: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ``DDPMTask`` params ({'unet', 'encoder'}:
+    the params, their gradients or an Adam moment) -> the port's parameter
+    names (``DDPMTask.named_parameters``), plus the encoder's running
+    statistics when ``batch_stats`` is given."""
     sd = {f"unet.{k}": v for k, v in
-          convert_jax_unet_params(variables["params"]["unet"], task_cfg.unet_config).items()}
+          convert_jax_unet_params(params["unet"], task_cfg.unet_config).items()}
     if task_cfg.condition:
         enc = convert_jax_resnet_variables(
-            variables["params"]["encoder"], variables["batch_stats"]["encoder"],
+            params["encoder"], None if batch_stats is None else batch_stats["encoder"],
             task_cfg.encoder_backbone,
         )
         sd.update({f"encoder.{k}": v for k, v in enc.items()})
     return sd
+
+
+def convert_jax_adam_state(opt_state, task, optimizer: torch.optim.Optimizer) -> dict:
+    """optax ``adam`` state (the chain's ``ScaleByAdamState`` with count, mu,
+    nu; as host numpy trees) -> a ``state_dict`` for ``optimizer``, a
+    ``torch.optim.Adam`` over ``task.parameters()`` (``train/loop.py::
+    make_optimizer``), so the port continues a JAX run step for step."""
+    states = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = next(s for s in states if hasattr(s, "mu") and hasattr(s, "nu"))
+    mu = convert_jax_ddpm_params(adam.mu, task.cfg)
+    nu = convert_jax_ddpm_params(adam.nu, task.cfg)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    names = [n for n, _ in task.named_parameters()]
+    state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+             for i, n in enumerate(names)}
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
