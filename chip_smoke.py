@@ -6,7 +6,8 @@
 Builds the hand-written kernels from ``conditioned_diffusion_models_uad_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card,
 then drives the port's paths (experiment cDDPM/DDPM_cond_spark_2D): the
-flagship single-shot volume reconstruction (``DDPMTask.reconstruct_with_aux``),
+flagship single-shot volume reconstruction (``DDPMTask.reconstruct_with_aux``;
+bf16 attention takes K2's tensor-core variant, float32 its scalar one),
 the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
 (``fused_groupnorm_silu``), and the flagship train step
 (``train/loop.py::train_step``). Each path is driven with the kernels' launch
@@ -169,19 +170,25 @@ def phase_k1():
     return recs[0]
 
 
-def k2_record(qkv):
+K2_VARIANTS = {"mma": ("attention_fwd_mma", "csrc/attention_mma.cu"),
+               "scalar": ("attention_fwd_scalar", "csrc/attention.cu")}
+
+
+def k2_record(qkv, kernel):
+    """K2 variant ``kernel`` ("mma" or "scalar") called directly on ``qkv``:
+    its error against the plain version, its time, the plain version's and
+    SDPA's, and its bound."""
     import torch
     import torch.nn.functional as F
 
-    from conditioned_diffusion_models_uad_torch.ops.attention import (
-        attention_reference,
-        fused_attention,
-    )
+    from conditioned_diffusion_models_uad_torch.ops import attention as A
 
+    name, source = K2_VARIANTS[kernel]
+    wrapper = getattr(A, name)
     b, s, _, h, d = qkv.shape
     dtype = str(qkv.dtype).replace("torch.", "")
-    got = fused_attention(qkv)
-    want = attention_reference(qkv)
+    got = wrapper(qkv)
+    want = A.attention_reference(qkv)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     del want
@@ -192,41 +199,69 @@ def k2_record(qkv):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     rec = {
-        "name": "fused_attention", "route": "cuda",
-        "source": f"{PKG}/csrc/attention.cu",
+        "name": name, "route": "cuda", "source": f"{PKG}/{source}",
         "replaces": "conditioned_diffusion_models_uad_tpu/ops/attention_pallas.py:117",
         "shape": list(qkv.shape), "dtype": dtype, "launches": None,
         "max_abs_err": err, "tol": TOL_K2[dtype],
-        "ms": cuda_ms(lambda: fused_attention(qkv), reps=5),
-        "plain_ms": cuda_ms(lambda: attention_reference(qkv), reps=3, warmup=1),
+        "ms": cuda_ms(lambda: wrapper(qkv), reps=20),
+        "plain_ms": cuda_ms(lambda: A.attention_reference(qkv), reps=3, warmup=1),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5), reps=5
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5), reps=10
         ),
     }
     return rec
 
 
 def phase_k2():
+    """Each case through ``fused_attention`` (the launch counters show which
+    variant its dispatch took, and it must be the one ``kernel_for`` names,
+    with the variant's own output), then the variant alone against the plain
+    version; and the scalar kernel at the flagship bf16 shape, called
+    directly, to set beside the tensor-core kernel."""
     import torch
+
+    from conditioned_diffusion_models_uad_torch.ops import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(1)
-    recs = []
-    for shape, dtype in (((576, 576, 3, 4, 64), torch.bfloat16),
-                         ((3, 100, 3, 2, 64), torch.float32),
-                         ((2, 64, 3, 2, 32), torch.float32)):
+    cases = [
+        ("mma", (576, 576, 3, 4, 64), torch.bfloat16, True),     # eval, batch 576
+        ("mma_train", (32, 576, 3, 4, 64), torch.bfloat16, True),  # train, batch 32
+        (None, (3, 100, 3, 2, 64), torch.bfloat16, True),        # ragged S
+        (None, (2, 64, 3, 2, 32), torch.bfloat16, True),         # D = 32
+        (None, (2, 600, 3, 2, 64), torch.bfloat16, True),        # S beyond the mma limit
+        ("scalar_bf16", (576, 576, 3, 4, 64), torch.bfloat16, False),
+        ("scalar", (12, 576, 3, 4, 64), torch.float32, True),    # slice_correctness
+        (None, (3, 100, 3, 2, 64), torch.float32, True),
+        (None, (2, 64, 3, 2, 32), torch.float32, True),
+    ]
+    recs, named = [], {}
+    for key, shape, dtype, dispatched in cases:
         qkv = torch.randn(shape, generator=g).to(dtype).cuda()
-        rec = k2_record(qkv)
+        kernel = A.kernel_for(dtype, shape[1], shape[-1]) if dispatched else "scalar"
+        rec = k2_record(qkv, kernel)
+        if dispatched:
+            counters = _zero_launches()
+            via = A.fused_attention(qkv)
+            torch.cuda.synchronize()
+            took = _read_launches(counters)
+            require(took[rec["name"]] == 1 and took["fused_attention"] == 1,
+                    f"K2 {shape} {dtype}: dispatch took {took}, wanted {rec['name']}")
+            require(torch.equal(via, getattr(A, rec["name"])(qkv)),
+                    f"K2 {shape} {dtype}: fused_attention differs from {rec['name']}")
+            rec["dispatch"] = kernel
         require(rec["max_abs_err"] <= rec["tol"],
-                f"K2 {shape} {dtype} err {rec['max_abs_err']}")
+                f"K2 {rec['name']} {shape} {dtype} err {rec['max_abs_err']}")
         recs.append(rec)
+        if key:
+            named[key] = rec
         del qkv
         torch.cuda.empty_cache()
     emit({"phase": "k2", "results": recs})
-    return recs[0]
+    return named
 
 
 def k3_record(x, gamma, beta, film, apply_silu=True, groups=32):
@@ -345,7 +380,8 @@ def phase_k3():
 def kernel_kind(name: str) -> str:
     """Coarse class of a CUDA kernel, from its name."""
     low = name.lower()
-    for kind, marks in (("K2 attention", ("attention_fwd_kernel",)),
+    for kind, marks in (("K2 attention", ("attention_fwd_kernel",
+                                          "attention_mma_fwd_kernel")),
                         ("K1 noise", ("fractal_noise_kernel",)),
                         ("K3 norm", ("gn_stats_kernel", "gn_apply_kernel")),
                         ("upsample/pool", ("upsample", "pool")),
@@ -373,11 +409,19 @@ def _kernel_events(prof):
 
 
 def _launch_counters():
-    from conditioned_diffusion_models_uad_torch.ops.attention import fused_attention
+    """Every wrapper's launch counter; ``fused_attention`` counts the launches
+    of both K2 variants, each of which also has its own."""
+    from conditioned_diffusion_models_uad_torch.ops.attention import (
+        attention_fwd_mma,
+        attention_fwd_scalar,
+        fused_attention,
+    )
     from conditioned_diffusion_models_uad_torch.ops.fused_norm import fused_groupnorm_silu
     from conditioned_diffusion_models_uad_torch.ops.simplex_hash import fractal_noise_2d
 
     return {"fractal_noise_2d": fractal_noise_2d, "fused_attention": fused_attention,
+            "attention_fwd_mma": attention_fwd_mma,
+            "attention_fwd_scalar": attention_fwd_scalar,
             "fused_groupnorm_silu": fused_groupnorm_silu}
 
 
@@ -416,10 +460,12 @@ def phase_slice_correctness():
     outs = {}
     for dev in ("cuda", "cpu"):
         task = _flagship_task(dev, dtype="float32")
+        counters = _zero_launches()
         t0 = time.perf_counter()
         reco, aux = task.reconstruct_with_aux(slices, seeds)
         if dev == "cuda":
             torch.cuda.synchronize()
+            launches = _read_launches(counters)
         outs[dev] = (reco.cpu(), {k: v.cpu() for k, v in aux.items()},
                      time.perf_counter() - t0)
         del task
@@ -434,12 +480,15 @@ def phase_slice_correctness():
     emit({"phase": "slice_correctness", "config": "DDPMTaskConfig(dtype='float32')",
           "slices": 4, "ensemble": 3, "max_abs_err_vs_cpu": err,
           "tol": TOL_SLICE_FP32, "reco_std": reco.std().item(),
-          "cpu_s": outs["cpu"][2]})
+          "launches": launches, "cpu_s": outs["cpu"][2]})
     require(reco.shape == (4, 96, 96, 1), f"reco shape {tuple(reco.shape)}")
     require(bool(torch.isfinite(reco).all()), "fp32 reconstruction not finite")
     require(reco.std().item() > 1e-3, "fp32 reconstruction is constant")
     for k, v in err.items():
         require(v <= TOL_SLICE_FP32, f"card vs CPU {k} err {v}")
+    require(launches["attention_fwd_scalar"] >= 1 and launches["attention_fwd_mma"] == 0,
+            f"float32 attention did not take the scalar K2 kernel: {launches}")
+    return launches
 
 
 def phase_full_size():
@@ -465,8 +514,10 @@ def phase_full_size():
     require(aux["loss_per_slice"].shape == (depth,)
             and bool(torch.isfinite(aux["loss_per_slice"]).all()), "loss_per_slice")
     require(aux["latent_per_slice"].shape == (depth, 128), "latent_per_slice")
-    for name in ("fractal_noise_2d", "fused_attention"):
+    for name in ("fractal_noise_2d", "fused_attention", "attention_fwd_mma"):
         require(launches[name] >= 1, f"{name} was not launched on the main path")
+    require(launches["attention_fwd_scalar"] == 0,
+            "bf16 attention slipped onto the scalar K2 kernel")
 
     e = task.cfg.ensemble_size
     reps = 5
@@ -650,8 +701,10 @@ def phase_train_full_size():
     torch.cuda.synchronize()
     launches = _read_launches(counters)
     per_step = {k: v / n_count for k, v in launches.items()}
-    for name in ("fractal_noise_2d", "fused_attention"):
+    for name in ("fractal_noise_2d", "fused_attention", "attention_fwd_mma"):
         require(per_step[name] >= 1, f"{name} was not launched on every train step")
+    require(per_step["attention_fwd_scalar"] == 0,
+            "bf16 attention slipped onto the scalar K2 kernel")
 
     reps = 20
     torch.cuda.reset_peak_memory_stats()
@@ -761,18 +814,27 @@ def main() -> int:
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
-    phase_slice_correctness()
+    slice_launches = phase_slice_correctness()
     launches = phase_full_size()
     phase_train_correctness()
     train_launches = phase_train_full_size()
+    k2_mma, k2_scalar = k2["mma"], k2["scalar"]
+    k2_mma["at_train_shape"] = {key: k2["mma_train"][key] for key in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    k2_scalar["at_flagship_bf16"] = {key: k2["scalar_bf16"][key] for key in (
+        "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
     k1["launches"] = launches["fractal_noise_2d"]
-    k2["launches"] = launches["fused_attention"]
-    for rec, name in ((k1, "fractal_noise_2d"), (k2, "fused_attention"),
+    k2_mma["launches"] = launches["attention_fwd_mma"]
+    k2_scalar["launches"] = launches["attention_fwd_scalar"]
+    for rec, name in ((k1, "fractal_noise_2d"), (k2_mma, "attention_fwd_mma"),
+                      (k2_scalar, "attention_fwd_scalar"),
                       (k3, "fused_groupnorm_silu")):
         rec["launches_by_path"] = {"reconstruct_call": launches[name],
                                    "train_step": train_launches[name]}
     k3["launches_by_path"]["fused_groupnorm_silu_call"] = k3["launches"]
-    emit({"kernels": [k1, k2, k3]})
+    k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
+        "attention_fwd_scalar"]
+    emit({"kernels": [k1, k2_mma, k2_scalar, k3]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@
 ``attention_reference`` is the plain PyTorch version of the JAX
 ``attention_reference``: q and k scaled by D^-1/4 in the input dtype, float32
 logits and softmax, weights cast to v's dtype, P·V accumulated in float32.
-``fused_attention`` launches kernel K2 (``csrc/attention.cu``) for a CUDA
-tensor; its backward recomputes through the plain version, as the JAX custom
-VJP does.
+``fused_attention`` launches kernel K2 for a CUDA tensor, in one of two
+variants chosen by ``kernel_for``: ``attention_fwd_mma`` (bf16 on the tensor
+cores, ``csrc/attention_mma.cu``) or ``attention_fwd_scalar`` (float32 and
+long sequences, ``csrc/attention.cu``). Its backward recomputes through the
+plain version, as the JAX custom VJP does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+# the largest S the tensor-core kernel's on-chip layout holds (4 warps x 9
+# steps of 16 keys; csrc/attention_mma.cu kMaxSeq)
+MMA_MAX_SEQ = 576
 
 
 def qk_scale(d: int, dtype: torch.dtype) -> float:
@@ -40,29 +45,88 @@ def attention_reference(qkv: torch.Tensor) -> torch.Tensor:
     return out.to(v.dtype)
 
 
-def _attention_fwd_cuda(qkv: torch.Tensor) -> torch.Tensor:
-    b, s, three, h, d = qkv.shape
-    if three != 3:
-        raise ValueError(f"expected qkv [B, S, 3, H, D], got {tuple(qkv.shape)}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_attention takes float32 or bfloat16, got {qkv.dtype}")
+def kernel_for(dtype: torch.dtype, s: int, d: int) -> str:
+    """The K2 variant that takes qkv of this dtype, sequence length and head
+    dim on the card: "mma" (bf16, S <= MMA_MAX_SEQ) or "scalar" (float32, or
+    bf16 beyond that S). Anything else raises."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"fused_attention head dim must be one of {_HEAD_DIMS}, got {d}")
+    if s < 1:
+        raise ValueError(f"fused_attention needs S >= 1, got {s}")
+    if dtype == torch.bfloat16 and s <= MMA_MAX_SEQ:
+        return "mma"
+    if dtype in _DTYPE_CODES:
+        return "scalar"
+    raise ValueError(f"fused_attention takes float32 or bfloat16, got {dtype}")
+
+
+def _check_qkv(qkv: torch.Tensor, kernel: str) -> None:
+    """Raise unless ``kernel`` takes this qkv: shape, dtype, S and D, a
+    contiguous layout and, for the tensor-core kernel, 16-byte aligned rows
+    (a view with a storage offset could break it)."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"expected qkv [B, S, 3, H, D], got {tuple(qkv.shape)}")
+    _, s, _, _, d = qkv.shape
+    picked = kernel_for(qkv.dtype, s, d)  # raises on what neither kernel takes
+    if kernel == "mma" and picked != "mma":
+        raise ValueError(f"the mma kernel does not take {qkv.dtype} at S={s}")
     if not qkv.is_contiguous():
         raise ValueError("fused_attention needs a contiguous qkv tensor")
-    out = torch.empty((b, s, h, d), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("attention")
-    fn = lib.attention_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
+    if kernel == "mma" and qkv.data_ptr() % 16:
+        raise ValueError("the mma kernel needs 16-byte aligned qkv rows "
+                         f"(data_ptr % 16 = {qkv.data_ptr() % 16})")
+
+
+def _lib_fn(lib_name: str, fn_name: str, argtypes):
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    return fn
+
+
+def attention_fwd_mma(qkv: torch.Tensor) -> torch.Tensor:
+    """K2 on the tensor cores for bf16 qkv [B, S, 3, H, D], S <= MMA_MAX_SEQ,
+    D in {32, 64}. A CPU tensor takes the plain version. Counts its launches
+    in ``attention_fwd_mma.launches`` and ``fused_attention.launches``."""
+    if qkv.device.type == "cpu":
+        return attention_reference(qkv)
+    _check_qkv(qkv, "mma")
+    b, s, _, h, d = qkv.shape
+    out = torch.empty((b, s, h, d), dtype=qkv.dtype, device=qkv.device)
+    fn = _lib_fn("attention_mma", "attention_mma_fwd",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    _build.check(fn(qkv.data_ptr(), out.data_ptr(), b, s, h, d,
+                    qk_scale(d, qkv.dtype), stream), "attention_mma_fwd launch")
+    attention_fwd_mma.launches += 1
+    fused_attention.launches += 1
+    return out
+
+
+def attention_fwd_scalar(qkv: torch.Tensor) -> torch.Tensor:
+    """K2 on the CUDA cores for float32 or bf16 qkv [B, S, 3, H, D] of any S,
+    D in {32, 64}. A CPU tensor takes the plain version. Counts its launches
+    in ``attention_fwd_scalar.launches`` and ``fused_attention.launches``."""
+    if qkv.device.type == "cpu":
+        return attention_reference(qkv)
+    _check_qkv(qkv, "scalar")
+    b, s, _, h, d = qkv.shape
+    out = torch.empty((b, s, h, d), dtype=qkv.dtype, device=qkv.device)
+    fn = _lib_fn("attention", "attention_fwd",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_void_p])
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     _build.check(fn(qkv.data_ptr(), out.data_ptr(), b, s, h, d,
                     _DTYPE_CODES[qkv.dtype], qk_scale(d, qkv.dtype), stream),
                  "attention_fwd launch")
+    attention_fwd_scalar.launches += 1
     fused_attention.launches += 1
     return out
+
+
+_KERNELS = {"mma": attention_fwd_mma, "scalar": attention_fwd_scalar}
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -73,7 +137,9 @@ class _FusedAttention(torch.autograd.Function):
             return attention_reference(qkv)
         if qkv.device.type != "cuda":
             raise ValueError(f"unsupported device {qkv.device}")
-        return _attention_fwd_cuda(qkv)
+        if qkv.dim() != 5 or qkv.shape[2] != 3:
+            raise ValueError(f"expected qkv [B, S, 3, H, D], got {tuple(qkv.shape)}")
+        return _KERNELS[kernel_for(qkv.dtype, qkv.shape[1], qkv.shape[-1])](qkv)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -87,10 +153,13 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(qkv: torch.Tensor) -> torch.Tensor:
     """qkv [B, S, 3, H, D] (float32 or bfloat16) -> [B, S, H, D]. The forward
-    launches K2 for a CUDA tensor and uses the plain version for a CPU one;
-    the backward recomputes through the plain version.
-    ``fused_attention.launches`` counts the kernel launches."""
+    launches the K2 variant ``kernel_for`` picks for a CUDA tensor and uses
+    the plain version for a CPU one; the backward recomputes through the
+    plain version. ``fused_attention.launches`` counts the launches of both
+    variants."""
     return _FusedAttention.apply(qkv)
 
 
 fused_attention.launches = 0
+attention_fwd_mma.launches = 0
+attention_fwd_scalar.launches = 0

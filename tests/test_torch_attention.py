@@ -1,7 +1,9 @@
 """The port's middle-block attention (conditioned_diffusion_models_uad_torch/
 ops/attention.py) against the JAX package's plain twin and its Pallas kernel
-in interpret mode, on the CPU; and the autograd Function's backward against
-jax.grad of attention_reference.
+in interpret mode, on the CPU; the autograd Function's backward against
+jax.grad of attention_reference; the rule that picks the card's K2 variant;
+and a float32 emulation of the tensor-core kernel's arithmetic
+(csrc/attention_mma.cu) against the Pallas kernel.
 
 Tolerances are those tests/test_attention_pallas.py holds the TPU kernel to:
 fp32 2e-6 (the same float32 ops, summed in another order) and bf16 2e-2
@@ -13,9 +15,16 @@ import pytest
 import torch
 
 from conditioned_diffusion_models_uad_torch.ops.attention import (
+    MMA_MAX_SEQ,
+    _check_qkv,
+    attention_fwd_mma,
+    attention_fwd_scalar,
     attention_reference,
     fused_attention,
+    kernel_for,
+    qk_scale,
 )
+from conditioned_diffusion_models_uad_torch.utils import k2_variants
 from conditioned_diffusion_models_uad_tpu.ops import attention_pallas as jattn
 
 torch.set_num_threads(2)
@@ -73,3 +82,111 @@ def test_backward_matches_jax_grad():
     xt = torch.from_numpy(x).requires_grad_(True)
     (fused_attention(xt) * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,s,d,want", [
+    (torch.bfloat16, 576, 64, "mma"),
+    (torch.bfloat16, 100, 64, "mma"),
+    (torch.bfloat16, 1, 32, "mma"),
+    (torch.bfloat16, MMA_MAX_SEQ + 1, 64, "scalar"),
+    (torch.float32, 576, 64, "scalar"),
+    (torch.float32, 4096, 32, "scalar"),
+])
+def test_kernel_for_picks_the_variant(dtype, s, d, want):
+    assert kernel_for(dtype, s, d) == want
+
+
+@pytest.mark.parametrize("dtype,s,d", [
+    (torch.bfloat16, 576, 48),
+    (torch.float32, 64, 128),
+    (torch.float16, 64, 64),
+    (torch.bfloat16, 0, 64),
+])
+def test_kernel_for_raises_on_what_no_kernel_takes(dtype, s, d):
+    with pytest.raises(ValueError):
+        kernel_for(dtype, s, d)
+
+
+def test_mma_check_raises_on_misaligned_or_unfit_qkv():
+    aligned = torch.zeros((2, 64, 3, 2, 32), dtype=torch.bfloat16)
+    assert aligned.data_ptr() % 16 == 0
+    _check_qkv(aligned, "mma")
+    base = torch.zeros(aligned.numel() + 1, dtype=torch.bfloat16)
+    shifted = base[1:].view(aligned.shape)  # a view with a storage offset
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="aligned"):
+        _check_qkv(shifted, "mma")
+    with pytest.raises(ValueError):
+        _check_qkv(aligned.float(), "mma")
+    _check_qkv(aligned.float(), "scalar")
+    with pytest.raises(ValueError):
+        _check_qkv(torch.zeros((1, MMA_MAX_SEQ + 1, 3, 1, 64), dtype=torch.bfloat16), "mma")
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_qkv(aligned.transpose(0, 1), "scalar")
+
+
+@pytest.mark.parametrize("wrapper", [attention_fwd_mma, attention_fwd_scalar])
+def test_variant_on_cpu_is_the_plain_version_and_not_counted(wrapper):
+    x = torch.from_numpy(_qkv((2, 64, 2, 32), seed=5)).to(torch.bfloat16)
+    before = (wrapper.launches, fused_attention.launches)
+    assert torch.equal(wrapper(x), attention_reference(x))
+    assert (wrapper.launches, fused_attention.launches) == before
+
+
+LOG2E = 1.4426950408889634
+SPLIT = 4  # warps that share a query slice, each over its own keys
+
+
+def mma_kernel_emulation(qkv: torch.Tensor) -> torch.Tensor:
+    """csrc/attention_mma.cu's arithmetic in float32 on the CPU, for bf16 qkv
+    [B, S, 3, H, D]: q*s and k*s rounded to bf16; the keys split 4 ways in
+    steps of 16 (ceil(S/64) steps a warp); row max and sum combined across the
+    split in split order; exp2((s - m) * log2e); the reciprocal of the sum
+    multiplied in; weights rounded to bf16; P.V partials per split summed in
+    split order; the output rounded to bf16."""
+    d = qkv.shape[-1]
+    s = qkv.shape[1]
+    scale = torch.tensor(qk_scale(d, torch.bfloat16), dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # [B, H, S, D]
+    q = (q * scale).float()
+    k = (k * scale).float()
+    v = v.float()
+    width = 16 * -(-s // (SPLIT * 16))
+    parts = [slice(w * width, min((w + 1) * width, s)) for w in range(SPLIT)
+             if w * width < s]
+    logits = q @ k.transpose(-1, -2)  # [B, H, S, S] f32
+    m = logits[..., parts[0]].amax(-1)
+    for p in parts[1:]:
+        m = torch.maximum(m, logits[..., p].amax(-1))
+    e = torch.exp2((logits - m[..., None]) * LOG2E)
+    sums = [e[..., p].sum(-1) for p in parts]
+    total = sums[0]
+    for x in sums[1:]:
+        total = total + x
+    weights = (e * (1.0 / total)[..., None]).to(torch.bfloat16).float()
+    out = weights[..., parts[0]] @ v[..., parts[0], :]
+    for p in parts[1:]:
+        out = out + weights[..., p] @ v[..., p, :]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1, 576, 4, 64), (2, 100, 2, 32)])
+def test_mma_emulation_matches_pallas_interpret(shape):
+    x = _qkv(shape, seed=6)
+    got = mma_kernel_emulation(torch.from_numpy(x).to(torch.bfloat16))
+    want = jattn.fused_attention(jnp.asarray(x, jnp.bfloat16), True).astype(jnp.float32)
+    assert got.shape == (shape[0], shape[1], shape[2], shape[3])
+    _compare(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("shape", [(3, 100, 2, 64), (2, 64, 2, 32), (1, 17, 1, 32)])
+def test_mma_emulation_matches_plain_version(shape):
+    x = torch.from_numpy(_qkv(shape, seed=7)).to(torch.bfloat16)
+    _compare(mma_kernel_emulation(x), attention_reference(x).float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("name", sorted(k2_variants.VARIANTS))
+def test_k2_variants_apply_to_the_shipped_source(name):
+    src = k2_variants.variant_source(name)
+    assert src != (k2_variants._build.CSRC / "attention_mma.cu").read_text()
+    assert "attention_mma_fwd_kernel" in src
