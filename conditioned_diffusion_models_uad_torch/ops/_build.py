@@ -103,6 +103,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# (library, function) -> (bound function, the argtypes it was bound with)
+_bound: Dict[tuple, tuple] = {}
+
+
+def bind(name: str, argtypes: Dict[str, list]) -> Dict[str, ctypes._CFuncPtr]:
+    """Library ``name``'s C functions named in ``argtypes``, each with its
+    ctypes ``argtypes`` set once, the first time that function is bound
+    (every function returns an int: a ``cudaError_t`` or a count). A later
+    call with other argtypes for a bound function raises."""
+    fns = {}
+    for fn_name, types in argtypes.items():
+        fn, bound_types = _bound.get((name, fn_name), (None, None))
+        if fn is None:
+            fn = getattr(load(name), fn_name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+            _bound[(name, fn_name)] = (fn, types)
+        elif types is not bound_types and list(types) != list(bound_types):
+            raise ValueError(f"{name}.{fn_name} is bound with other argtypes")
+        fns[fn_name] = fn
+    return fns
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if status != 0:

@@ -78,10 +78,7 @@ def _check_qkv(qkv: torch.Tensor, kernel: str) -> None:
 
 
 def _lib_fn(lib_name: str, fn_name: str, argtypes):
-    fn = getattr(_build.load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind(lib_name, {fn_name: argtypes})[fn_name]
 
 
 def attention_fwd_mma(qkv: torch.Tensor) -> torch.Tensor:

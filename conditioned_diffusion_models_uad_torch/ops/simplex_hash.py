@@ -103,6 +103,22 @@ def _simplex2_hash(x, y, seed):
     return value / NORM2
 
 
+def octave_constants(octaves: int = 6, persistence: float = 0.8,
+                     frequency: float = 64.0) -> torch.Tensor:
+    """float32 [2, octaves]: row 0 the frequency of each octave, row 1 its
+    amplitude, as the JAX loop (``ops/simplex_pallas.py::_fractal_body``)
+    makes them in double (``f /= 2.0``, ``amp *= persistence``) and float32
+    arithmetic then rounds them."""
+    ff, amp = [], []
+    f, a = float(frequency), 1.0
+    for _ in range(octaves):
+        ff.append(f)
+        amp.append(a)
+        f /= 2.0
+        a *= persistence
+    return torch.tensor([ff, amp], dtype=torch.float32).reshape(2, octaves)
+
+
 def fractal_noise_2d_hash(
     seeds: torch.Tensor,  # [N] int32
     shape: Tuple[int, int],
@@ -119,13 +135,16 @@ def fractal_noise_2d_hash(
     ii = ii.expand(seeds.shape[0], h, w)
     jj = jj.expand(seeds.shape[0], h, w)
     out = torch.zeros((seeds.shape[0], h, w), dtype=torch.float32, device=dev)
-    amp = 1.0
-    f = float(frequency)
-    for _ in range(octaves):
-        out = out + amp * _simplex2_hash(jj / f, ii / f, seed)
-        f /= 2.0
-        amp *= persistence
+    ff, amp = octave_constants(octaves, persistence, frequency).tolist()
+    for f, a in zip(ff, amp):
+        out = out + a * _simplex2_hash(jj / f, ii / f, seed)
     return out
+
+
+_ARGTYPES = {"simplex_fractal_noise": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]}
+MAX_OCTAVES = 32  # csrc/simplex_noise.cu kMaxOctaves
 
 
 def fractal_noise_2d(
@@ -146,18 +165,17 @@ def fractal_noise_2d(
     if seeds.device.type != "cuda":
         raise ValueError(f"unsupported device {seeds.device}")
     h, w = shape
+    if not 0 <= octaves <= MAX_OCTAVES or h > 65535 or seeds.shape[0] > 65535:
+        raise ValueError(f"K1 takes 0..{MAX_OCTAVES} octaves and at most 65535 rows "
+                         f"and fields, got {octaves}, {h}, {seeds.shape[0]}")
     seeds = seeds.contiguous()
     out = torch.empty((seeds.shape[0], h, w), dtype=torch.float32,
                       device=seeds.device)
-    lib = _build.load("simplex_noise")
-    fn = lib.simplex_fractal_noise
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    consts = octave_constants(octaves, persistence, frequency)
+    fn = _build.bind("simplex_noise", _ARGTYPES)["simplex_fractal_noise"]
     stream = torch.cuda.current_stream(seeds.device).cuda_stream
     _build.check(fn(seeds.data_ptr(), out.data_ptr(), seeds.shape[0], h, w,
-                    octaves, persistence, frequency, stream),
+                    octaves, consts.data_ptr(), stream),
                  "simplex_fractal_noise launch")
     fractal_noise_2d.launches += 1
     return out

@@ -24,7 +24,7 @@ from conditioned_diffusion_models_uad_torch.ops.attention import (
     kernel_for,
     qk_scale,
 )
-from conditioned_diffusion_models_uad_torch.utils import k2_variants
+from conditioned_diffusion_models_uad_torch.utils import kernel_variants
 from conditioned_diffusion_models_uad_tpu.ops import attention_pallas as jattn
 
 torch.set_num_threads(2)
@@ -185,8 +185,9 @@ def test_mma_emulation_matches_plain_version(shape):
     _compare(mma_kernel_emulation(x), attention_reference(x).float().numpy(), "bfloat16")
 
 
-@pytest.mark.parametrize("name", sorted(k2_variants.VARIANTS))
+@pytest.mark.parametrize("name", sorted(kernel_variants.K2_VARIANTS))
 def test_k2_variants_apply_to_the_shipped_source(name):
-    src = k2_variants.variant_source(name)
-    assert src != (k2_variants._build.CSRC / "attention_mma.cu").read_text()
+    src = kernel_variants.variant_source("attention_mma", name)
+    assert src is not None
+    assert src != (kernel_variants._build.CSRC / "attention_mma.cu").read_text()
     assert "attention_mma_fwd_kernel" in src

@@ -105,3 +105,131 @@ def test_cpu_is_the_plain_version_and_not_counted():
     assert fused_groupnorm_silu.launches == before
     with pytest.raises(ValueError):
         fused_groupnorm_silu(x[0, 0], gamma, beta)
+
+
+# --------------------------------------------------------------------------- #
+# K3's two variants: the plan, and the cluster kernel's arithmetic
+# --------------------------------------------------------------------------- #
+from conditioned_diffusion_models_uad_torch.ops import fused_norm as F3  # noqa: E402
+
+# chip_smoke.py's TOL_K3: allclose (atol, rtol) against the plain version
+TOL_K3 = {"bfloat16": dict(atol=2e-2, rtol=2e-2), "float32": dict(atol=2e-5, rtol=0.0)}
+
+
+@pytest.mark.parametrize("n,c,k", [(9216, 128, 16), (2304, 256, 8), (576, 256, 2)])
+def test_kernel_for_takes_the_unet_sites_in_one_cluster_pass(n, c, k):
+    plan = F3.kernel_for(torch.bfloat16, n, c, 32)
+    assert plan.variant == "cluster" and plan.k == k
+    assert plan.rows_per_rank * c * 2 == 147_456  # each rank's share of a sample
+    assert plan.smem_bytes == F3.cluster_smem(plan.rows_per_rank, c, 32, 2, k)
+    assert plan.smem_bytes <= F3.MAX_SMEM
+    # the least power of two: half as many CTAs would not hold a sample
+    assert F3.cluster_smem(2 * plan.rows_per_rank, c, 32, 2, k // 2) > F3.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype,n,c,groups,aligned", [
+    (torch.float32, 9216, 128, 32, True),   # a 4.7 MB sample
+    (torch.bfloat16, 100, 36, 12, True),    # C*2 % 16 != 0
+    (torch.bfloat16, 9216, 128, 32, False),  # x not 16-byte aligned
+    (torch.bfloat16, 64, 1024, 32, True),   # C > 512: a thread a channel
+    (torch.bfloat16, 4 * 9216, 128, 32, True),  # beyond 16 CTAs
+])
+def test_kernel_for_gives_the_rest_to_the_two_pass_kernel(dtype, n, c, groups, aligned):
+    assert F3.kernel_for(dtype, n, c, groups, aligned=aligned) == F3.K3Plan("two_pass")
+
+
+@pytest.mark.parametrize("dtype,n,c,groups,aligned", [
+    (torch.float16, 576, 256, 32, True),
+    (torch.bfloat16, 576, 100, 32, True),   # 100 channels, 32 groups
+    (torch.bfloat16, 0, 128, 32, True),
+    (torch.bfloat16, 64, 2048, 32, False),  # 2048 one-element threads
+])
+def test_kernel_for_raises_on_what_neither_variant_takes(dtype, n, c, groups, aligned):
+    with pytest.raises(ValueError):
+        F3.kernel_for(dtype, n, c, groups, aligned=aligned)
+
+
+@pytest.mark.parametrize("wrapper", [F3.fused_groupnorm_silu_cluster,
+                                     F3.fused_groupnorm_silu_two_pass])
+def test_variant_on_cpu_is_the_plain_version_and_not_counted(wrapper):
+    x, gamma, beta, f = _torch_args(*_inputs("B", seed=4), torch.bfloat16)
+    before = (wrapper.launches, fused_groupnorm_silu.launches)
+    b, h, w, c = x.shape
+    want = groupnorm_silu_reference(x.reshape(b, h * w, c), gamma, beta, f)
+    assert torch.equal(wrapper(x, gamma, beta, f), want.reshape(x.shape))
+    assert (wrapper.launches, fused_groupnorm_silu.launches) == before
+
+
+def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return v.to(dtype).float()
+
+
+def cluster_kernel_emulation(x, gamma, beta, film, *, k, groups=32, eps=1e-6,
+                             apply_silu=True):
+    """csrc/fused_norm.cu::gn_cluster_kernel's arithmetic in float32 on the
+    CPU, for x [B, N, C]: rank r of a sample's k-CTA cluster holds rows
+    [r*R, min(N, (r+1)*R)), R = ceil(N/k) (the last rank ragged, or empty);
+    each rank's float32 sums of x and of round(x*x) per group; the k
+    partials folded in rank order; mean, var = E[x^2] - mean^2, inv =
+    rsqrt(var + eps); a = inv*gamma, b = beta - mean*a, FiLM a*(1+s),
+    b*(1+s)+t, a and b rounded to x's dtype; y = round(round(x*a) + b); SiLU
+    y / round(1 + round(exp(-y))), rounded."""
+    dt = x.dtype
+    b, n, c = x.shape
+    cg = c // groups
+    xf = x.float()
+    rows = -(-n // k)
+    s1 = torch.zeros(b, groups)
+    s2 = torch.zeros(b, groups)
+    for r in range(k):  # rank order
+        part = xf[:, r * rows:min(n, (r + 1) * rows)].reshape(b, -1, groups, cg)
+        s1 = s1 + part.sum(dim=(1, 3))
+        s2 = s2 + _round(part * part, dt).sum(dim=(1, 3))
+    cnt = float(n * cg)
+    mean = s1 / cnt
+    inv = torch.rsqrt(s2 / cnt - mean * mean + eps)
+    mean_c = mean.repeat_interleave(cg, dim=1)  # [B, C]
+    a = inv.repeat_interleave(cg, dim=1) * gamma.float()
+    bb = beta.float() - mean_c * a
+    if film is not None:
+        fs = 1.0 + film[0].float()
+        a = a * fs
+        bb = bb * fs + film[1].float()
+    a, bb = _round(a, dt)[:, None, :], _round(bb, dt)[:, None, :]
+    y = _round(_round(xf * a, dt) + bb, dt)
+    if apply_silu:
+        y = _round(y / _round(1.0 + _round(torch.exp(-y), dt), dt), dt)
+    return y.to(dt)
+
+
+def test_emulated_ranks_cover_every_row_once():
+    for n, k in ((9215, 16), (99, 4), (9, 8), (5, 16)):
+        rows = -(-n // k)
+        seen = [i for r in range(k) for i in range(r * rows, min(n, (r + 1) * rows))]
+        assert seen == list(range(n))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,k,film,silu", [
+    ((2, 99, 64), 4, "B", True),     # ragged last rank (24 of 25 rows)
+    ((3, 36, 128), 16, "1", True),   # 3 rows a rank, the last three ranks empty
+    ((2, 64, 256), 2, None, False),
+])
+def test_cluster_emulation_matches_pallas_interpret(dtype, shape, k, film, silu):
+    tdt, jdt = DTYPES[dtype]
+    x, gamma, beta, f = _inputs(film, seed=7, shape=shape)
+    got = cluster_kernel_emulation(*_torch_args(x, gamma, beta, f, tdt), k=k,
+                                   apply_silu=silu)
+    jx, jg, jb, jf = _jax_args(x, gamma, beta, f, jdt)
+    fs, fsh = jf if jf is not None else (None, None)
+    want = jnorm._fused_pallas(jx, jg, jb, fs, fsh, groups=32, eps=1e-6,
+                               apply_silu=silu, interpret=True)
+    assert got.shape == shape and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **TOL_K3[dtype])
+
+
+def test_bf16_slice_check_takes_only_a_card_tensor():
+    x = torch.zeros((4, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        F3.bf16_slice_check(x, x.float(), x.float(), True)

@@ -92,3 +92,60 @@ def test_gaussian_noise_fn_is_seeded():
     assert a.shape == (6, 8, 8, 1)
     assert torch.equal(a, noise_fn(seeds, (3, 8, 8, 1)))
     assert not torch.equal(a[:3], a[3:])
+
+
+# --------------------------------------------------------------------------- #
+# the per-octave constants K1 takes from the host
+# --------------------------------------------------------------------------- #
+from conditioned_diffusion_models_uad_torch.ops.simplex_hash import octave_constants  # noqa: E402
+from conditioned_diffusion_models_uad_tpu.ops import simplex_pallas  # noqa: E402
+
+OCTAVE_PARAMS = [(6, 0.8, 64.0), (3, 0.5, 16.0), (5, 0.7, 10.3), (0, 0.8, 64.0)]
+
+
+def _jax_loop_octaves(monkeypatch, octaves, persistence, frequency, w=8):
+    """What the JAX loop (``simplex_pallas._fractal_body``) hands each octave:
+    the x coordinates jj / f it passes, and the weight amp of that octave's
+    term in float32, read with a stub octave that is 1 for octave o only."""
+    xs, amps = [], []
+    for o in range(octaves):
+        calls = []
+
+        def stub(x, y, seed, calls=calls, o=o):
+            calls.append(x)
+            return jnp.full_like(x, 1.0 if len(calls) - 1 == o else 0.0)
+
+        monkeypatch.setattr(simplex_pallas, "_simplex2_hash", stub)
+        out = simplex_pallas._fractal_body(1, w, jnp.uint32(0), octaves, persistence,
+                                           frequency)
+        xs.append(np.asarray(calls[o])[0])
+        amps.append(np.asarray(out)[0, 0])
+    return xs, amps
+
+
+@pytest.mark.parametrize("octaves,persistence,frequency", OCTAVE_PARAMS)
+def test_octave_constants_are_the_jax_loops_float32_values(monkeypatch, octaves,
+                                                           persistence, frequency):
+    consts = octave_constants(octaves, persistence, frequency)
+    assert consts.dtype == torch.float32 and consts.shape == (2, octaves)
+    xs, amps = _jax_loop_octaves(monkeypatch, octaves, persistence, frequency)
+    jj = np.arange(8, dtype=np.float32)
+    for o in range(octaves):
+        ff, amp = consts[0, o].item(), consts[1, o].item()
+        np.testing.assert_array_equal(jj / np.float32(ff), xs[o])
+        assert np.float32(amp) == amps[o]
+    # the double-precision recurrence, rounded once
+    f, a = float(frequency), 1.0
+    for o in range(octaves):
+        assert consts[0, o].item() == np.float32(f) and consts[1, o].item() == np.float32(a)
+        f, a = f / 2.0, a * persistence
+
+
+@pytest.mark.parametrize("octaves,persistence,frequency", OCTAVE_PARAMS[1:3])
+def test_plain_version_on_octave_constants_matches_jax_twin(octaves, persistence,
+                                                            frequency):
+    got = fractal_noise_2d_hash(torch.tensor([7, 2**31 - 2], dtype=torch.int32), (24, 40),
+                                octaves, persistence, frequency)
+    for i, s in enumerate((7, 2**31 - 2)):
+        want = np.asarray(jax_hash(jnp.int32(s), (24, 40), octaves, persistence, frequency))
+        np.testing.assert_allclose(got[i].numpy(), want, atol=TOL, rtol=0)
