@@ -9,8 +9,12 @@ then drives the port's paths (experiment cDDPM/DDPM_cond_spark_2D): the
 flagship single-shot volume reconstruction (``DDPMTask.reconstruct_with_aux``;
 bf16 attention takes K2's tensor-core variant, float32 its scalar one),
 the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
-(``fused_groupnorm_silu``), and the flagship train step
-(``train/loop.py::train_step``). Each path is driven with the kernels' launch
+(``fused_groupnorm_silu``), the anomaly-scoring eval chain (phases
+``eval_correctness``: the scoring core card against CPU and scipy on one
+reconstruction; ``eval_full_size``: the orchestrated val/test/healthy
+protocol through ``eval/reconstruct.py::VolumeReconstructor.
+batch_call_scored`` and ``eval/harness.py::EvalSession``), and the flagship
+train step (``train/loop.py::train_step``). Each path is driven with the kernels' launch
 counters set to 0 just before it and read just after. Every phase prints one
 JSON line; any failed check raises, so the process exits non-zero. The last
 line is the device line ``{"ok": true, "device": {...}}``.
@@ -66,6 +70,16 @@ TOL_SLICE_FP32 = 2e-3
 # would have made otherwise.
 TRAIN_TOL = {"loss": 1e-5, "grad_encoder": 1e-3, "grad_unet": 1e-3, "stats": 1e-4,
              "param_mean": 1e-7, "param_share": 1e-3, "flipped_share": 1e-4}
+# eval scoring, card against CPU on the same reconstruction: the residual,
+# maps, counts, thresholds, best dice and squared Hausdorff distances bit for
+# bit; float32 means and sums (reco errors, scores, AUROC/AUPRC) summed in
+# another order, relative
+TOL_EVAL_REL = 1e-5
+# the flagship scoring grid: configs/datamodule/IXI.yaml image_dim
+# [192, 192, 100] over rescale 2
+EVAL_SHAPE = (96, 96, 50)
+EXACT_EVAL_SCALARS = ("best_dice", "th_record", "th_apply", "lesion_size", "haus_pt",
+                      "haus_tp", "tp", "fp", "tn", "fn")
 
 sys.path.insert(0, str(ROOT))
 try:
@@ -479,7 +493,7 @@ def phase_k3():
             readings[v].append(cuda_ms(fns[v], reps=20 if site else 5))
         plain_ms = cuda_ms(lambda: F3.groupnorm_silu_reference(
             x, gamma, beta, film, groups=groups, apply_silu=silu), reps=3, warmup=1)
-        library_ms = _k3_library_ms(x, gamma, beta, groups) if site else None
+        library_ms = _k3_library_ms(x, gamma, beta, groups)
         for rec, v in zip(recs[-len(variants):], variants):
             rec.update(ms=sum(readings[v]) / len(readings[v]), ms_readings=readings[v],
                        plain_ms=plain_ms, library_ms=library_ms,
@@ -524,6 +538,9 @@ def kernel_kind(name: str) -> str:
                         ("K3 norm", ("gn_cluster_kernel", "gn_stats_kernel",
                                      "gn_apply_kernel")),
                         ("upsample/pool", ("upsample", "pool")),
+                        ("sort/select", ("sort", "radix", "median", "kthvalue")),
+                        ("scan", ("scan", "cumsum", "cummax", "cummin")),
+                        ("index/scatter", ("index", "scatter", "gather", "bincount")),
                         ("convolution", ("conv", "xmma", "implicit", "cudnn",
                                          "fprop")),
                         ("gemm", ("gemm", "cutlass", "matmul")),
@@ -703,6 +720,391 @@ def phase_full_size():
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
           "kernel_ms_by_kind": by_kind, "top_kernels": top})
     return launches
+
+
+def _eval_subjects(n, seed, lesion):
+    """``n`` synthetic subjects at EVAL_SHAPE from a torch seed, as host
+    arrays like the loader's: vol = vol_orig in [0, 1] inside an ellipsoid
+    brain mask; on a lesion set one or two brighter spherical lesions of
+    ~260-700 voxels, on a healthy set an all-zero seg."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    h, w, d = EVAL_SHAPE
+    ii, jj, kk = torch.meshgrid(*(torch.arange(s, dtype=torch.float32) for s in EVAL_SHAPE),
+                                indexing="ij")
+    brain = (((ii - (h - 1) / 2) / (0.42 * h)) ** 2 + ((jj - (w - 1) / 2) / (0.36 * w)) ** 2
+             + ((kk - (d - 1) / 2) / (0.45 * d)) ** 2) <= 1.0
+    subs = []
+    for i in range(n):
+        tissue = F.avg_pool3d(torch.rand((1, 1, h, w, d), generator=g), 3, 1, 1,
+                              count_include_pad=False)[0, 0]
+        vol = brain * (0.2 + tissue)
+        seg = torch.zeros(EVAL_SHAPE, dtype=torch.bool)
+        if lesion:
+            for _ in range(1 + int(torch.randint(0, 2, (1,), generator=g))):
+                r = 4.0 + 1.5 * float(torch.rand(1, generator=g))
+                c = [int(torch.randint(int(0.35 * s), int(0.65 * s), (1,), generator=g))
+                     for s in EVAL_SHAPE]
+                seg |= ((ii - c[0]) ** 2 + (jj - c[1]) ** 2 + (kk - c[2]) ** 2) <= r * r
+            seg &= brain
+            vol = torch.where(seg, 0.85 + 0.15 * torch.rand(EVAL_SHAPE, generator=g), vol)
+        subs.append({"vol": vol.numpy(), "vol_orig": vol.numpy(),
+                     "mask_orig": brain.float().numpy(), "seg_orig": seg.float().numpy(),
+                     "ID": f"{'lesion' if lesion else 'healthy'}{seed}_{i}",
+                     "label": int(lesion), "seed": seed * 100 + i})
+    return subs
+
+
+def _volume_seeds(task, seeds):
+    """[G, E] simplex seeds, each volume's row from its own seed (the port's
+    counterpart of fold_in(key, volume index)): a volume draws the same noise
+    in whichever group it rides."""
+    import torch
+
+    return torch.cat([task.draw_seeds(torch.Generator().manual_seed(int(s)), 1) for s in seeds])
+
+
+def _eval_rel(a: float, b: float) -> float:
+    """Relative difference, 0 for two NaNs, inf for one."""
+    if math.isnan(a) or math.isnan(b):
+        return 0.0 if math.isnan(a) and math.isnan(b) else math.inf
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def phase_eval_correctness():
+    """Two lesion subjects reconstructed once on the card (flagship config,
+    bf16), then scored by ``_volume_eval_core`` on the card and on the CPU
+    from the same reconstruction, under both backend settings (host: the
+    maps come back and scipy filters and measures them; device: component
+    filter, counts and Hausdorff in the core). The residual, maps, counts,
+    thresholds, best dice and squared Hausdorff pair must be equal card
+    against CPU; float rows within TOL_EVAL_REL. The card's component filter
+    must equal scipy's, and its Hausdorff pair the scipy host path's."""
+    import numpy as np
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.eval import cc, hausdorff
+    from conditioned_diffusion_models_uad_torch.eval import metrics as M
+    from conditioned_diffusion_models_uad_torch.eval.fused import (
+        SCALAR_KEYS,
+        _volume_eval_core,
+        parse_packed,
+    )
+    from conditioned_diffusion_models_uad_torch.eval.harness import EvalConfig, EvalSession
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+
+    task = _flagship_task("cuda")
+    recon = VolumeReconstructor(task)
+    subs = _eval_subjects(2, 40, lesion=True)
+    outs = recon.batch_call([s["vol"] for s in subs], _volume_seeds(task, [s["seed"] for s in subs]))
+    torch.cuda.synchronize()
+    llen = recon.latent_len()
+    host_ref, records, worst = {}, [], {"rel": 0.0, "key": None}
+    for backend in ("host", "device"):
+        session = EvalSession(EvalConfig(cc_backend=backend, hausdorff_backend=backend),
+                              "Brats21", "val")
+        flags = session._fused_flags(EVAL_SHAPE, seg_is_host=True)
+        st = flags["statics"]
+        for j, (sub, (reco, aux)) in enumerate(zip(subs, outs)):
+            parsed, diffs = {}, {}
+            for dev in ("cuda", "cpu"):
+                vols = [torch.as_tensor(sub[k], device=dev)
+                        for k in ("vol_orig", "mask_orig", "seg_orig")]
+                nan = torch.tensor(float("nan"), device=dev)
+                diff, buf = _volume_eval_core(vols[0], reco.to(dev), vols[1], vols[2], nan, nan,
+                                              aux["loss"].to(dev), aux["latent"].to(dev), **st)
+                diffs[dev] = diff.cpu()
+                parsed[dev] = parse_packed(buf.cpu(), EVAL_SHAPE, llen, st["pack_seg"],
+                                           st["pack_maps"])
+            g, c = parsed["cuda"], parsed["cpu"]
+            where = f"{backend} volume {j}"
+            require(torch.equal(diffs["cuda"], diffs["cpu"]), f"eval diff differs card/CPU, {where}")
+            for k in SCALAR_KEYS:
+                a, b = g["scalars"][k], c["scalars"][k]
+                if k in EXACT_EVAL_SCALARS:
+                    require(a == b or (math.isnan(a) and math.isnan(b)),
+                            f"eval {k} {a} != {b} card/CPU, {where}")
+                else:
+                    rel = _eval_rel(a, b)
+                    if rel > worst["rel"]:
+                        worst.update(rel=rel, key=f"{k}, {where}")
+            require(np.array_equal(g["per_slice"][:, 1:], c["per_slice"][:, 1:]),
+                    f"eval per-slice counts differ card/CPU, {where}")
+            rel = float(np.max(np.abs(g["per_slice"][:, 0] - c["per_slice"][:, 0])
+                               / np.maximum(np.abs(c["per_slice"][:, 0]), 1e-6)))
+            if rel > worst["rel"]:
+                worst.update(rel=rel, key=f"slice_score, {where}")
+            for k in ("thresholded", "seg"):
+                require((g[k] is None and c[k] is None) or np.array_equal(g[k], c[k]),
+                        f"eval map {k} differs card/CPU, {where}")
+            seg_np = sub["seg_orig"] > 0
+            s = g["scalars"]
+            rec = {"backend": backend, "volume": j, "lesion_size": s["lesion_size"],
+                   "auroc": s["auroc"], "auprc": s["auprc"], "best_dice": s["best_dice"],
+                   "th_record": s["th_record"]}
+            if backend == "host":
+                # the card's component filter and Hausdorff on the fetched map
+                # against scipy's
+                thr = g["thresholded"]
+                filt_host = M.filter_3d_connected_components(thr, 8)
+                thr_card = torch.from_numpy(thr).cuda()
+                filt_card = cc.filter_3d_connected_components_device(thr_card, 8).cpu().numpy()
+                rounds = cc.label_rounds(thr_card)[1]
+                require(np.array_equal(filt_card, filt_host),
+                        f"card component filter differs from scipy, volume {j}")
+                pair = {dev: [float(v) for v in hausdorff.hausdorff_sq_pair(
+                    torch.from_numpy(filt_host).to(dev), torch.from_numpy(seg_np).to(dev))]
+                    for dev in ("cuda", "cpu")}
+                require(pair["cuda"] == pair["cpu"], f"Hausdorff pair card/CPU {pair}")
+                scipy_h = M.hausdorff_distance(filt_host, seg_np)
+                card_h = (math.nan if min(pair["cuda"]) < 0 else math.sqrt(max(pair["cuda"])))
+                require(card_h == scipy_h or (math.isnan(card_h) and math.isnan(scipy_h)),
+                        f"card Hausdorff {card_h} != scipy {scipy_h}, volume {j}")
+                host_ref[j] = (M.confusion_counts(filt_host, seg_np), pair["cuda"])
+                rec.update(cc_rounds=rounds, hausdorff=scipy_h, hausdorff_sq_pair=pair["cuda"],
+                           thresholded_voxels=int(thr.sum()), kept_voxels=int(filt_host.sum()),
+                           counts=list(host_ref[j][0]))
+            else:
+                counts = tuple(int(s[k]) for k in ("tp", "fp", "tn", "fn"))
+                require(counts == host_ref[j][0],
+                        f"device counts {counts} != scipy-filtered {host_ref[j][0]}, volume {j}")
+                require([s["haus_pt"], s["haus_tp"]] == host_ref[j][1],
+                        f"in-core Hausdorff pair differs from the host setting's, volume {j}")
+                rec["counts"] = list(counts)
+            records.append(rec)
+    emit({"phase": "eval_correctness", "config": "DDPMTaskConfig() (bf16)",
+          "shape": list(EVAL_SHAPE), "volumes": len(subs), "tol_rel": TOL_EVAL_REL,
+          "worst_float_rel": worst, "results": records})
+    require(worst["rel"] <= TOL_EVAL_REL, f"eval float rows card/CPU: {worst}")
+
+
+def _score_group(session, group, diff_g, packed_g, flags, llen, score_fn):
+    """Scorer-thread body: the group's one fetch, then each volume's commit."""
+    from conditioned_diffusion_models_uad_torch.eval.fused import parse_packed
+
+    st = flags["statics"]
+    done = 0
+    try:
+        buf = packed_g.cpu().numpy()
+        for j, (i, sub) in enumerate(group):
+            parsed = parse_packed(buf[j], EVAL_SHAPE, llen, st["pack_seg"], st["pack_maps"])
+            session.test_step_precomputed(
+                parsed, diff_g[j], flags, seg_available=True, batch_idx=i, ID=sub["ID"],
+                label_vol=sub["label"], score_fn=score_fn, data_seg=sub["seg_orig"],
+                seg_dev=sub["seg_dev"])
+            done = j + 1
+    except BaseException:
+        for i, _ in group[done:]:
+            session._abort_turn(i)
+        raise
+
+
+def _eval_protocol(task, recon, cfg, stages):
+    """The orchestrated eval protocol (as conditioned_diffusion_models_uad_tpu/
+    orchestrate.py drives it): per stage an EvalSession, groups of
+    ``volumes_per_call`` subjects through ``batch_call_scored``, each group's
+    packed buffer parsed and committed on a scorer thread, then
+    ``test_end``; the test stage takes the val stage's threshold. Returns
+    the sessions, the wall seconds and test_end ms per stage."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from conditioned_diffusion_models_uad_torch.eval.harness import EvalSession
+
+    sessions, test_end_ms, threshold = {}, {}, None
+    t_start = time.perf_counter()
+    for dataset, stage, subs in stages:
+        session = EvalSession(cfg, dataset, stage,
+                              threshold=threshold if stage == "test" else None)
+        flags = session._fused_flags(EVAL_SHAPE, seg_is_host=True)
+        vpc = cfg.volumes_per_call
+        with ThreadPoolExecutor(max_workers=cfg.scorer_threads) as scorer:
+            pending = []
+            for start in range(0, len(subs), vpc):
+                group = [(i, subs[i]) for i in range(start, min(start + vpc, len(subs)))]
+                diff_g, packed_g = recon.batch_call_scored(
+                    [s for _, s in group], flags, _volume_seeds(task, [s["seed"] for _, s in group]))
+                while len(pending) >= cfg.scorer_threads:
+                    pending.pop(0).result()
+                pending.append(scorer.submit(_score_group, session, group, diff_g, packed_g,
+                                             flags, recon.latent_len(), task.anomaly_scores))
+            for f in pending:
+                f.result()
+        t0 = time.perf_counter()
+        session.test_end()
+        test_end_ms[f"{dataset}/{stage}"] = (time.perf_counter() - t0) * 1e3
+        if stage == "val" and not session.is_healthy:
+            threshold = dict(session.threshold)
+        sessions[(dataset, stage)] = session
+    return sessions, time.perf_counter() - t_start, test_end_ms
+
+
+def _scoring_stage_ms(orig, reco, mask, seg):
+    """Device ms of the scoring stages of one volume (CUDA events): the
+    post-process (residual, erosion, median, reco errors, scores), the sort
+    + search, the component filter (with its rounds) and the Hausdorff pair."""
+    from conditioned_diffusion_models_uad_torch.eval import cc, hausdorff
+    from conditioned_diffusion_models_uad_torch.eval import metrics as M
+    from conditioned_diffusion_models_uad_torch.eval import postprocess as P
+
+    def post():
+        diff = P.postprocess_residual(orig, reco, mask, erode_iterations=EVAL_SHAPE[1] // 25)
+        P.reco_errors(orig, reco, seg)
+        P.slice_anomaly_scores(diff, mask)
+        P.volume_anomaly_score(diff, mask)
+        return diff
+
+    diff = post()
+    x, y = diff.reshape(-1), (seg > 0).reshape(-1)
+    th = M._seg_metrics_sorted_impl(x, y, x.max())[3]
+    thr = diff > th
+    filt = cc.filter_3d_connected_components_device(thr, 8)
+    return {
+        "post_process": cuda_ms(post, reps=5),
+        "sort_search": cuda_ms(lambda: M._seg_metrics_sorted_impl(x, y, x.max()), reps=5),
+        "cc": cuda_ms(lambda: cc.filter_3d_connected_components_device(thr, 8), reps=5),
+        "cc_rounds": cc.label_rounds(thr)[1],
+        "hausdorff": cuda_ms(lambda: hausdorff.hausdorff_sq_pair(filt, seg > 0), reps=5),
+    }
+
+
+def phase_eval_full_size():
+    """The orchestrated eval protocol at the flagship config (bf16, full
+    width) and scoring shape: a lesion set (val, then test with the val
+    threshold) and a healthy set (IXI, val), four subjects each, two volumes
+    a reconstruction call, under the device_fast backends and under the
+    defaults (host). Launch counters are zeroed just before each protocol run
+    and read just after. Then the timings: s per group with and without the
+    scoring, the scoring stages of one volume, a profiled group, and K2 at
+    the eval shape."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from conditioned_diffusion_models_uad_torch.eval.harness import EvalConfig
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+
+    task = _flagship_task("cuda")
+    recon = VolumeReconstructor(task)
+    stages = [("Brats21", "val", _eval_subjects(4, 50, lesion=True)),
+              ("Brats21", "test", _eval_subjects(4, 51, lesion=True)),
+              ("IXI", "val", _eval_subjects(4, 52, lesion=False))]
+    for _, _, subs in stages:
+        for s in subs:  # the loader's pre-upload of the seg (val-stage pooling)
+            s["seg_dev"] = torch.as_tensor(s["seg_orig"], device="cuda")
+    n_vol = sum(len(s) for _, _, s in stages)
+    settings = {"device_fast": dict(cc_backend="device", hausdorff_backend="device"),
+                "host": {}}
+    runs = {}
+    for name, backends in settings.items():
+        cfg = EvalConfig(volumes_per_call=2, fused_dispatch=True, **backends)
+        groups = sum(-(-len(s) // cfg.volumes_per_call) for _, _, s in stages)
+        counters = _zero_launches()
+        sessions, wall_s, test_end_ms = _eval_protocol(task, recon, cfg, stages)
+        torch.cuda.synchronize()
+        launches = _read_launches(counters)
+        les_val, les_test = sessions[("Brats21", "val")], sessions[("Brats21", "test")]
+        healthy = sessions[("IXI", "val")].eval_dict
+        rows = {st: {k: list(sessions[("Brats21", st)].eval_dict[k]) for k in (
+            "TPPerVol", "FPPerVol", "TNPerVol", "FNPerVol", "lesionSizePerVol")}
+            for st in ("val", "test")}
+        runs[name] = {
+            "groups": groups, "launches": launches, "wall_s": wall_s,
+            "volumes_per_sec": n_vol / wall_s, "test_end_ms": test_end_ms,
+            "threshold_total": les_val.threshold.get("total"),
+            "DicePerVolMean": {st: sessions[("Brats21", st)].eval_dict["DicePerVolMean"]
+                               for st in ("val", "test")},
+            "AUPRCPerVolMean": {st: sessions[("Brats21", st)].eval_dict["AUPRCPerVolMean"]
+                                for st in ("val", "test")},
+            "AUCPerVolMean": les_test.eval_dict["AUCPerVolMean"],
+            "HausPerVolMean": les_test.eval_dict["HausPerVolMean"],
+            "healthy_t": {k: healthy.get(k) for k in ("t_1p", "t_5p", "t_10p")},
+            "counts": rows,
+        }
+        r = runs[name]
+        for st in ("val", "test"):
+            require(math.isfinite(r["DicePerVolMean"][st]) and math.isfinite(r["AUPRCPerVolMean"][st]),
+                    f"eval {name} {st}: DicePerVolMean/AUPRCPerVolMean not finite")
+        require(r["threshold_total"] is not None and math.isfinite(r["threshold_total"]),
+                f"eval {name}: no fitted val threshold")
+        require(les_test.eval_dict["BestThresholdPerVol"] == [r["threshold_total"]] * 4,
+                f"eval {name}: the test stage did not take the val threshold")
+        require(all(v is not None and math.isfinite(v) for v in r["healthy_t"].values()),
+                f"eval {name}: healthy-set thresholds {r['healthy_t']}")
+        require(launches["fractal_noise_2d"] >= groups and launches["attention_fwd_mma"] >= groups,
+                f"eval {name}: K1/K2 not launched on every group: {launches}")
+        require(launches["attention_fwd_scalar"] == 0,
+                f"eval {name}: bf16 attention slipped onto the scalar K2 kernel")
+    require(runs["device_fast"]["counts"] == runs["host"]["counts"],
+            "eval counts differ between the device_fast and host backends")
+    require(runs["device_fast"]["threshold_total"] == runs["host"]["threshold_total"],
+            "eval val threshold differs between the backends")
+
+    # timings: one val group, scored and not, in turns
+    cfg = EvalConfig(volumes_per_call=2, cc_backend="device", hausdorff_backend="device")
+    from conditioned_diffusion_models_uad_torch.eval.harness import EvalSession
+
+    flags = EvalSession(cfg, "Brats21", "val")._fused_flags(EVAL_SHAPE, seg_is_host=True)
+    group = stages[0][2][:2]
+    seeds = _volume_seeds(task, [s["seed"] for s in group])
+
+    def scored():
+        return recon.batch_call_scored(group, flags, seeds)[1].cpu()
+
+    def reco_only():
+        out = recon.batch_call([s["vol"] for s in group], seeds)
+        torch.cuda.synchronize()
+        return out
+
+    readings = {"scored": [], "reconstruct": []}
+    for key in ("scored", "reconstruct", "reconstruct", "scored"):
+        fn = scored if key == "scored" else reco_only
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        readings[key].append((time.perf_counter() - t0) / 3)
+    reco0 = reco_only()[0][0]
+    t = {k: torch.as_tensor(group[0][k], device="cuda") for k in ("vol_orig", "mask_orig",
+                                                                  "seg_orig")}
+    stage_ms = _scoring_stage_ms(t["vol_orig"], reco0, t["mask_orig"], t["seg_orig"])
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scored()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_events(prof)
+    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    by_kind = {}
+    for ev in kernels:
+        kind = kernel_kind(ev.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_eval_group.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+
+    g = torch.Generator().manual_seed(8)
+    k2_eval = k2_record(torch.randn((336, 576, 3, 4, 64), generator=g).to(torch.bfloat16).cuda(),
+                        "mma")
+    require(k2_eval["max_abs_err"] <= k2_eval["tol"], f"K2 at the eval shape: {k2_eval}")
+    emit({"phase": "eval_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "DDPMTaskConfig() (bf16), EvalConfig(volumes_per_call=2, fused_dispatch)",
+          "shape": list(EVAL_SHAPE), "volumes": n_vol,
+          "stages": ["Brats21/val", "Brats21/test (val threshold)", "IXI/val"],
+          "runs": runs,
+          "s_per_group_reconstruct_score": float(np.mean(readings["scored"])),
+          "s_per_group_reconstruct": float(np.mean(readings["reconstruct"])),
+          "s_per_group_readings": readings,
+          "scoring_ms_per_volume": stage_ms,
+          "profiled_group_wall_ms": wall_ms, "profiled_group_kernel_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+          "kernel_ms_by_kind": by_kind,
+          "k2_eval_shape": {k: k2_eval[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "library_ms")}})
+    return runs["device_fast"]
 
 
 def _train_setup(b, device, seed):
@@ -952,6 +1354,8 @@ def main() -> int:
     k3 = phase_k3()
     slice_launches = phase_slice_correctness()
     launches = phase_full_size()
+    phase_eval_correctness()
+    eval_run = phase_eval_full_size()
     phase_train_correctness()
     train_launches = phase_train_full_size()
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
@@ -968,7 +1372,9 @@ def main() -> int:
                       (k3_cluster, "fused_groupnorm_silu_cluster"),
                       (k3_two_pass, "fused_groupnorm_silu_two_pass")):
         rec["launches_by_path"] = {"reconstruct_call": launches[name],
-                                   "train_step": train_launches[name]}
+                                   "train_step": train_launches[name],
+                                   "eval_protocol": eval_run["launches"][name],
+                                   "eval_group": eval_run["launches"][name] / eval_run["groups"]}
     for rec in (k3_cluster, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[

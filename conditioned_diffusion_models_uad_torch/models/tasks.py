@@ -265,3 +265,17 @@ class DDPMTask(nn.Module):
             t=cfg.test_timesteps - 1, cond=cond, noise=noise, reduce=False,
         )
         return reco, {"loss_per_slice": loss_ps, "latent_per_slice": latent}
+
+    def anomaly_scores(self, loss: float) -> dict:
+        """Volume anomaly scores from the eval diffusion loss, used when
+        ``use_postprocessed_score`` is off (reference DDPM_2D.py:251-254,
+        267-280: Comb = Reg = Reco = loss; Combi = Reco·Reg; CombPrior =
+        Reco + β·0; CombiPrior = Reco·0)."""
+        return {
+            "reco": loss,
+            "reg": loss,
+            "comb": loss,
+            "combi": loss * loss,
+            "comb_prior": loss,
+            "combi_prior": 0.0,
+        }

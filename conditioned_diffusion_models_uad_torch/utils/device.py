@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -21,3 +22,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_tensor(x, dtype: torch.dtype, device: DeviceLike = None) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor. A tensor stays on its device unless
+    ``device`` names another; a host array (numpy, list, scalar) goes to
+    ``resolve_device(device)``."""
+    if torch.is_tensor(x):
+        return x.to(dtype=dtype) if device is None else x.to(resolve_device(device), dtype)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device)).to(dtype)
