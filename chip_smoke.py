@@ -13,21 +13,30 @@ the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
 ``eval_correctness``: the scoring core card against CPU and scipy on one
 reconstruction; ``eval_full_size``: the orchestrated val/test/healthy
 protocol through ``eval/reconstruct.py::VolumeReconstructor.
-batch_call_scored`` and ``eval/harness.py::EvalSession``), and the flagship
-train step (``train/loop.py::train_step``). Each path is driven with the kernels' launch
-counters set to 0 just before it and read just after. Every phase prints one
-JSON line; any failed check raises, so the process exits non-zero. The last
-line is the device line ``{"ok": true, "device": {...}}``.
+batch_call_scored`` and ``eval/harness.py::EvalSession``), the flagship
+train step (``train/loop.py::train_step``), and the run from NIfTI files
+through the port's CLI (``run_from_files``: fit with validation, checkpoints
+and CSV logs, then the val -> test eval from the files, an eval-only
+reload, device against host preprocessing; the files are written by a child
+process during the earlier phases that are not timed, and it is stopped while
+a timed one runs). Each path is driven with the
+kernels' launch counters set to 0 just before it and read just after. Every
+phase prints one JSON line; any failed check raises, so the process exits
+non-zero. The last line is the device line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or run from a directory that holds no port package, it exits
 non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -753,17 +762,17 @@ def _eval_subjects(n, seed, lesion):
         subs.append({"vol": vol.numpy(), "vol_orig": vol.numpy(),
                      "mask_orig": brain.float().numpy(), "seg_orig": seg.float().numpy(),
                      "ID": f"{'lesion' if lesion else 'healthy'}{seed}_{i}",
-                     "label": int(lesion), "seed": seed * 100 + i})
+                     "label": int(lesion)})
     return subs
 
 
-def _volume_seeds(task, seeds):
-    """[G, E] simplex seeds, each volume's row from its own seed (the port's
-    counterpart of fold_in(key, volume index)): a volume draws the same noise
-    in whichever group it rides."""
-    import torch
+def _volume_seeds(task, idxs):
+    """[G, E] simplex seeds of the volumes at stage indices ``idxs``, as the
+    JAX package derives them from the flagship run's eval key (seed 3141,
+    fold 0): a volume draws the same noise in whichever group it rides."""
+    from conditioned_diffusion_models_uad_torch.orchestrate import eval_key, volume_seeds
 
-    return torch.cat([task.draw_seeds(torch.Generator().manual_seed(int(s)), 1) for s in seeds])
+    return volume_seeds(eval_key(3141, 0), idxs, task.cfg.ensemble_size)
 
 
 def _eval_rel(a: float, b: float) -> float:
@@ -798,7 +807,7 @@ def phase_eval_correctness():
     task = _flagship_task("cuda")
     recon = VolumeReconstructor(task)
     subs = _eval_subjects(2, 40, lesion=True)
-    outs = recon.batch_call([s["vol"] for s in subs], _volume_seeds(task, [s["seed"] for s in subs]))
+    outs = recon.batch_call([s["vol"] for s in subs], _volume_seeds(task, range(len(subs))))
     torch.cuda.synchronize()
     llen = recon.latent_len()
     host_ref, records, worst = {}, [], {"rel": 0.0, "key": None}
@@ -880,57 +889,24 @@ def phase_eval_correctness():
     require(worst["rel"] <= TOL_EVAL_REL, f"eval float rows card/CPU: {worst}")
 
 
-def _score_group(session, group, diff_g, packed_g, flags, llen, score_fn):
-    """Scorer-thread body: the group's one fetch, then each volume's commit."""
-    from conditioned_diffusion_models_uad_torch.eval.fused import parse_packed
-
-    st = flags["statics"]
-    done = 0
-    try:
-        buf = packed_g.cpu().numpy()
-        for j, (i, sub) in enumerate(group):
-            parsed = parse_packed(buf[j], EVAL_SHAPE, llen, st["pack_seg"], st["pack_maps"])
-            session.test_step_precomputed(
-                parsed, diff_g[j], flags, seg_available=True, batch_idx=i, ID=sub["ID"],
-                label_vol=sub["label"], score_fn=score_fn, data_seg=sub["seg_orig"],
-                seg_dev=sub["seg_dev"])
-            done = j + 1
-    except BaseException:
-        for i, _ in group[done:]:
-            session._abort_turn(i)
-        raise
-
-
 def _eval_protocol(task, recon, cfg, stages):
-    """The orchestrated eval protocol (as conditioned_diffusion_models_uad_tpu/
-    orchestrate.py drives it): per stage an EvalSession, groups of
-    ``volumes_per_call`` subjects through ``batch_call_scored``, each group's
-    packed buffer parsed and committed on a scorer thread, then
-    ``test_end``; the test stage takes the val stage's threshold. Returns
-    the sessions, the wall seconds and test_end ms per stage."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """The orchestrated eval protocol: per stage an EvalSession, the stage's
+    group loop (``orchestrate.run_stage``: groups of ``volumes_per_call``
+    subjects through ``batch_call_scored``, each group's packed buffer
+    committed on a scorer thread), then ``test_end``; the test stage takes
+    the val stage's threshold. Returns the sessions, the wall seconds and
+    test_end ms per stage."""
     from conditioned_diffusion_models_uad_torch.eval.harness import EvalSession
+    from conditioned_diffusion_models_uad_torch.orchestrate import eval_key, run_stage
 
     sessions, test_end_ms, threshold = {}, {}, None
     t_start = time.perf_counter()
     for dataset, stage, subs in stages:
         session = EvalSession(cfg, dataset, stage,
                               threshold=threshold if stage == "test" else None)
-        flags = session._fused_flags(EVAL_SHAPE, seg_is_host=True)
-        vpc = cfg.volumes_per_call
-        with ThreadPoolExecutor(max_workers=cfg.scorer_threads) as scorer:
-            pending = []
-            for start in range(0, len(subs), vpc):
-                group = [(i, subs[i]) for i in range(start, min(start + vpc, len(subs)))]
-                diff_g, packed_g = recon.batch_call_scored(
-                    [s for _, s in group], flags, _volume_seeds(task, [s["seed"] for _, s in group]))
-                while len(pending) >= cfg.scorer_threads:
-                    pending.pop(0).result()
-                pending.append(scorer.submit(_score_group, session, group, diff_g, packed_g,
-                                             flags, recon.latent_len(), task.anomaly_scores))
-            for f in pending:
-                f.result()
+        run_stage(session, recon, subs, eval_key(3141, 0),
+                  volumes_per_call=cfg.volumes_per_call, scorer_threads=cfg.scorer_threads,
+                  fused_dispatch=cfg.fused_dispatch, score_fn=task.anomaly_scores)
         t0 = time.perf_counter()
         session.test_end()
         test_end_ms[f"{dataset}/{stage}"] = (time.perf_counter() - t0) * 1e3
@@ -992,7 +968,7 @@ def phase_eval_full_size():
               ("IXI", "val", _eval_subjects(4, 52, lesion=False))]
     for _, _, subs in stages:
         for s in subs:  # the loader's pre-upload of the seg (val-stage pooling)
-            s["seg_dev"] = torch.as_tensor(s["seg_orig"], device="cuda")
+            s["_dev"] = {"seg_orig": torch.as_tensor(s["seg_orig"], device="cuda")}
     n_vol = sum(len(s) for _, _, s in stages)
     settings = {"device_fast": dict(cc_backend="device", hausdorff_backend="device"),
                 "host": {}}
@@ -1047,7 +1023,7 @@ def phase_eval_full_size():
 
     flags = EvalSession(cfg, "Brats21", "val")._fused_flags(EVAL_SHAPE, seg_is_host=True)
     group = stages[0][2][:2]
-    seeds = _volume_seeds(task, [s["seed"] for s in group])
+    seeds = _volume_seeds(task, range(len(group)))
 
     def scored():
         return recon.batch_call_scored(group, flags, seeds)[1].cpu()
@@ -1332,6 +1308,260 @@ def phase_train_full_size():
     return per_step
 
 
+# the run from files: raw NIfTI at or above configs/datamodule/IXI.yaml's
+# image_dim [192, 192, 100] on every axis, so the crop happens; 32 IXI train
+# subjects (one batch-32 step an epoch), 2 val, 2 test, and 4 val + 4 test
+# for each lesion set of the datamodule's testsets
+FILES_RAW_SHAPE = (196, 198, 104)
+FILES_SETS = ("Brats21", "MSLUB")
+# device against host preprocessing of one subject: the transforms'
+# tolerance in tests/test_torch_transforms.py (images), exact for labels
+TOL_PREPROC = 1e-5
+_GEN_DATA = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from conditioned_diffusion_models_uad_torch.data.synthetic import build_synthetic_root\n"
+    "build_synthetic_root(sys.argv[2], shape=tuple(map(int, sys.argv[3].split(','))),\n"
+    "                     n_train=32, n_val=2, n_test=2, n_eval=4,\n"
+    "                     eval_sets=tuple(sys.argv[4].split(',')), seed=0)\n"
+)
+
+
+def start_file_data(work: Path):
+    """Write the run-from-files DATA_DIR in a child process (numpy on the
+    host; ~2 s a subject), at low priority, while the build and the
+    correctness phases run; ``paused`` stops it for each timed phase."""
+    return subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-c", _GEN_DATA, str(ROOT), str(work / "data"),
+         ",".join(map(str, FILES_RAW_SHAPE)), ",".join(FILES_SETS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+@contextlib.contextmanager
+def paused(proc):
+    """Stop ``proc`` (SIGSTOP) for the duration of a timed phase, so that the
+    phase's host-bound numbers are taken without its load; continue it after."""
+    running = proc.poll() is None
+    if running:
+        proc.send_signal(signal.SIGSTOP)
+    try:
+        yield
+    finally:
+        if running and proc.poll() is None:
+            proc.send_signal(signal.SIGCONT)
+
+
+def _preds_rows(preds):
+    """(set/stage, key) -> value of every row of a preds dict."""
+    return {(f"{st}/{name}", k): v for st, sets in preds.items()
+            for name, d in sets.items() for k, v in d.items()}
+
+
+def _compare_preds(a, b):
+    """The exact rows (IDs, counts, thresholds) that differ, and the worst
+    relative difference of the float rows."""
+    import numpy as np
+
+    exact_keys = ("IDs", "TPPerVol", "FPPerVol", "TNPerVol", "FNPerVol",
+                  "BestThresholdPerVol", "lesionSizePerVol", "labelPerVol")
+    ra, rb = _preds_rows(a), _preds_rows(b)
+    differ, worst = [], {"rel": 0.0, "key": None}
+    require(ra.keys() == rb.keys(), "the reloaded preds dict has other rows")
+    for key, va in ra.items():
+        vb = rb[key]
+        if key[1] in exact_keys or key[1].startswith("t_"):
+            if va != vb:
+                differ.append("/".join(key))
+            continue
+        try:
+            xa = np.asarray(va, dtype=np.float64).ravel()
+            xb = np.asarray(vb, dtype=np.float64).ravel()
+        except (TypeError, ValueError):
+            if va != vb:
+                differ.append("/".join(key))
+            continue
+        require(xa.shape == xb.shape, f"row {key} changed length")
+        for x, y in zip(xa.tolist(), xb.tolist()):
+            rel = _eval_rel(x, y)
+            if rel > worst["rel"]:
+                worst.update(rel=rel, key="/".join(key))
+    return differ, worst
+
+
+def phase_run_from_files(gen, work: Path):
+    """The flagship experiment from NIfTI files through the port's CLI
+    (``__main__.main``): fit 2 epochs with a validation after each (best and
+    last checkpoints, CSV logs), then the val -> test eval of Brats21 and
+    MSLUB under eval=device_fast, device preprocessing, full width. The
+    launch counters are set to 0 just before the fit and each eval stage and
+    read just after. Then the artifacts, an eval-only rerun from the 'last'
+    checkpoint (same counts, IDs and thresholds; float rows within
+    TOL_EVAL_REL), and two subjects preprocessed on the card and on the host."""
+    import contextlib
+    import csv
+    import io
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from conditioned_diffusion_models_uad_torch import orchestrate
+    from conditioned_diffusion_models_uad_torch.__main__ import main as cli
+    from conditioned_diffusion_models_uad_torch.data.datamodules import (
+        Brats21,
+        DataConfig,
+        load_subject,
+    )
+    from conditioned_diffusion_models_uad_torch.train import loop
+
+    t0 = time.perf_counter()
+    out, _ = gen.communicate(timeout=600)
+    data_wait_s = time.perf_counter() - t0
+    require(gen.returncode == 0, f"writing the NIfTI data failed: {out[-2000:]}")
+    data_dir, logs = work / "data", work / "logs"
+
+    launches = {"fit": None, "stages": {}}
+    orig_fit, orig_stage = loop.Trainer.fit, orchestrate.run_stage
+
+    def fit(self, *a, **kw):
+        counters = _zero_launches()
+        try:
+            return orig_fit(self, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            launches["fit"] = _read_launches(counters)
+
+    def run_stage(session, *a, **kw):
+        counters = _zero_launches()
+        try:
+            return orig_stage(session, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            launches["stages"][f"{session.dataset}/{session.stage}"] = _read_launches(counters)
+
+    common = ["experiment=cDDPM/DDPM_cond_spark_2D", "eval=device_fast", "logger=csv",
+              "datamodule.preprocess_backend=device", f"datamodule.data_dir={data_dir}",
+              f"log_dir={logs}"]
+    runs = {"fit_eval": ["name=from_files", "trainer.max_epochs=2",
+                         "trainer.check_val_every_n_epoch=1"],
+            "reload": ["name=reload", "only_eval=true",
+                       f"load_checkpoint={logs / 'from_files'}", "checkpoint=last"]}
+    wall, printed = {}, io.StringIO()
+    loop.Trainer.fit, orchestrate.run_stage = fit, run_stage
+    try:
+        for name, args in runs.items():
+            launches["stages"] = {}
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):  # the config tree
+                cli(common + args)
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            launches[name] = launches["stages"]
+    finally:
+        loop.Trainer.fit, orchestrate.run_stage = orig_fit, orig_stage
+    eval_launches, reload_launches = launches["fit_eval"], launches["reload"]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "run_from_files_cli.txt").write_text(printed.getvalue())
+
+    # the artifacts
+    run = logs / "from_files"
+    for rel in ("final_config.yaml", "config_tree.txt", "csv_fold0/metrics.csv",
+                "checkpoints/fold-0/meta.json", "checkpoints/fold-0/best/state.pt",
+                "checkpoints/fold-0/last/state.pt", "0_preds_dict.pkl", "0_timings.json"):
+        require((run / rel).is_file(), f"run from files: {rel} missing")
+    with open(run / "csv_fold0/metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    train_loss = [float(r["value"]) for r in rows if r["key"] == "train/loss"]
+    val_loss = [float(r["value"]) for r in rows if r["key"] == "val/loss_comb"]
+    require(len(train_loss) == 2 and len(val_loss) == 2
+            and all(math.isfinite(v) for v in train_loss + val_loss),
+            f"run from files: train/loss {train_loss}, val/loss_comb {val_loss}")
+    meta = json.loads((run / "checkpoints/fold-0/meta.json").read_text())
+    require(meta["last"]["step"] == 2 and meta["best"]["step"] in (1, 2), f"meta.json {meta}")
+    ckpt_mb = {k: (run / f"checkpoints/fold-0/{k}/state.pt").stat().st_size / 2**20
+               for k in ("best", "last")}
+    preds = pickle.loads((run / "0_preds_dict.pkl").read_bytes())
+    summary = {}
+    for stage in ("val", "test"):
+        for name in FILES_SETS:
+            d = preds[stage][name]
+            summary[f"{name}/{stage}"] = {k: d[k] for k in ("DicePerVolMean", "AUPRCPerVolMean")}
+            require(len(d["IDs"]) == 4 and all(math.isfinite(v)
+                                                for v in summary[f"{name}/{stage}"].values()),
+                    f"run from files {name}/{stage}: {summary[f'{name}/{stage}']}")
+    timings = json.loads((run / "0_timings.json").read_text())
+    reload_preds = pickle.loads((logs / "reload" / "0_preds_dict.pkl").read_bytes())
+    differ, worst = _compare_preds(preds, reload_preds)
+    require(not differ, f"eval-only reload differs in {differ}")
+    require(worst["rel"] <= TOL_EVAL_REL, f"eval-only reload float rows: {worst}")
+
+    # the kernels on each path
+    fit_l = launches["fit"]
+    for where, got in [("fit", fit_l)] + [(f"eval {k}", v) for k, v in eval_launches.items()]:
+        require(got["fractal_noise_2d"] >= 1 and got["attention_fwd_mma"] >= 1,
+                f"run from files, {where}: K1/K2 not launched: {got}")
+        require(got["attention_fwd_scalar"] == 0,
+                f"run from files, {where}: bf16 attention took the scalar K2 kernel")
+    eval_total = {k: sum(v[k] for v in eval_launches.values()) for k in fit_l}
+
+    # two subjects preprocessed on the card and on the host
+    cfg_dev = DataConfig(data_dir=str(data_dir), preprocess_backend="device")
+    cfg_host = DataConfig(data_dir=str(data_dir))
+    rows2 = Brats21(cfg_dev, 0, device="cuda").csv["val"][:2]
+    load_subject(rows2[0], cfg_dev, keep_orig=True, device="cuda")  # warm-up
+    secs = {"device": 0.0, "host": 0.0}
+    preproc_err = {}
+    for row in rows2:
+        t0 = time.perf_counter()
+        dev = load_subject(row, cfg_dev, keep_orig=True, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = load_subject(row, cfg_host, keep_orig=True)
+        secs["device"] += t1 - t0
+        secs["host"] += time.perf_counter() - t1
+        for k in ("vol", "vol_orig", "mask_orig", "seg_orig"):
+            got = dev[k].cpu().numpy()
+            require(got.shape == host[k].shape, f"preprocess {k} shape {got.shape}")
+            err = float(np.abs(got - host[k]).max())
+            preproc_err[k] = max(preproc_err.get(k, 0.0), err)
+    require(preproc_err["vol"] <= TOL_PREPROC and preproc_err["vol_orig"] <= TOL_PREPROC,
+            f"device against host preprocessing: {preproc_err}")
+    require(preproc_err["mask_orig"] == 0 and preproc_err["seg_orig"] == 0,
+            f"device against host labels: {preproc_err}")
+
+    fit_t = timings["fit"]
+    epochs = len(fit_t["epoch_s"])
+    stages = timings["eval"]
+    n_eval = sum(v["volumes"] for v in stages.values())
+    eval_s = sum(v["total"] + v["test_end"] for v in stages.values())
+    emit({"phase": "run_from_files", "nvidia_smi": nvidia_smi(),
+          "config": "experiment=cDDPM/DDPM_cond_spark_2D (full width), trainer.max_epochs=2, "
+                    "check_val_every_n_epoch=1, eval=device_fast, logger=csv, "
+                    "preprocess_backend=device",
+          "raw_shape": list(FILES_RAW_SHAPE), "train_subjects": 32, "batch": 32,
+          "data_wait_s": data_wait_s, "cli_wall_s": wall,
+          "ingest_s": timings["ingest_s"], "ingest_subjects": 34,
+          "ingest_subjects_per_sec_device": 34 / timings["ingest_s"],
+          "s_per_epoch_steps": sum(fit_t["epoch_s"]) / epochs,
+          "s_per_step": sum(fit_t["epoch_s"]) / fit_t["steps"],
+          "epoch_s": fit_t["epoch_s"], "val_s": fit_t["val_s"], "ckpt_s": fit_t["ckpt_s"],
+          "s_per_epoch_with_val_ckpt": (sum(fit_t["epoch_s"]) + sum(fit_t["val_s"])
+                                        + sum(fit_t["ckpt_s"])) / epochs,
+          "ckpt_mb": ckpt_mb, "train_loss": train_loss, "val_loss": val_loss, "meta": meta,
+          "eval_volumes": n_eval, "eval_s": eval_s,
+          "eval_volumes_per_sec": n_eval / eval_s,
+          "eval_loader_wait_s": sum(v["load"] for v in stages.values()),
+          "eval_stages": stages, "metrics": summary,
+          "reload_worst_float_rel": worst,
+          "preprocess_subjects_per_sec": {k: len(rows2) / v for k, v in secs.items()},
+          "preprocess_max_abs_err": preproc_err, "tol_preprocess": TOL_PREPROC,
+          "launches_fit": fit_l, "launches_eval": eval_launches,
+          "launches_reload_eval": reload_launches})
+    return {"fit_epoch": {k: v / epochs for k, v in fit_l.items()},
+            "eval_from_files": eval_total}
+
+
 def main() -> int:
     try:
         import torch
@@ -1348,16 +1578,35 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port: {_IMPORT_ERROR}", file=sys.stderr)
         return 2
 
+    work = Path(tempfile.mkdtemp(prefix="uad_from_files_"))
+    gen = start_file_data(work)
+    try:
+        return run_phases(gen, work)
+    finally:
+        if gen.poll() is None:
+            gen.kill()
+            gen.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(gen, work: Path) -> int:
+    import torch
+
     phase_device()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k3 = phase_k3()
+    with paused(gen):
+        k1 = phase_k1()
+        k2 = phase_k2()
+        k3 = phase_k3()
     slice_launches = phase_slice_correctness()
-    launches = phase_full_size()
+    with paused(gen):
+        launches = phase_full_size()
     phase_eval_correctness()
-    eval_run = phase_eval_full_size()
+    with paused(gen):
+        eval_run = phase_eval_full_size()
     phase_train_correctness()
-    train_launches = phase_train_full_size()
+    with paused(gen):
+        train_launches = phase_train_full_size()
+    files = phase_run_from_files(gen, work)
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
     k2_mma["at_train_shape"] = {key: k2["mma_train"][key] for key in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1374,7 +1623,9 @@ def main() -> int:
         rec["launches_by_path"] = {"reconstruct_call": launches[name],
                                    "train_step": train_launches[name],
                                    "eval_protocol": eval_run["launches"][name],
-                                   "eval_group": eval_run["launches"][name] / eval_run["groups"]}
+                                   "eval_group": eval_run["launches"][name] / eval_run["groups"],
+                                   "fit_epoch": files["fit_epoch"][name],
+                                   "eval_from_files": files["eval_from_files"][name]}
     for rec in (k3_cluster, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[

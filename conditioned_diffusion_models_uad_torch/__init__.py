@@ -1,7 +1,11 @@
 """PyTorch/CUDA port of the conditioned-diffusion anomaly-detection system.
 
-This package runs the cDDPM single-shot volume reconstruction and the cDDPM
-train step (augmentation, loss, backward, Adam) on an NVIDIA Hopper card. It mirrors the module paths and names of the JAX package
+This package runs the flagship cDDPM experiment on an NVIDIA Hopper card,
+from NIfTI files through its own CLI (``python -m
+conditioned_diffusion_models_uad_torch experiment=cDDPM/DDPM_cond_spark_2D``):
+preprocessing, the train step and fit loop with checkpoints and logs, the
+single-shot volume reconstruction and the anomaly-scoring eval. It mirrors
+the module paths and names of the JAX package
 ``conditioned_diffusion_models_uad_tpu`` so each counterpart is easy to find,
 but imports nothing from it (nor ``jax``/``flax``).
 

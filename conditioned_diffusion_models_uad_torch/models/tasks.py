@@ -28,6 +28,12 @@ from .unet import UNetConfig, UNetModel
 
 INT32_MAX = 2**31 - 1
 
+# fields of the JAX package's config that the port accepts at their defaults
+# only: the DDIM sampler, the patched (pDDPM) variant and ResBlock recompute
+_NOT_PORTED = {"sampling_steps": 50, "patched": False, "patch_hw": (48, 48),
+               "grid_boxes_eval": "equalized", "patch_aggregation": "avg",
+               "inpaint": False, "use_checkpoint": False}
+
 
 @dataclasses.dataclass(frozen=True)
 class DDPMTaskConfig:
@@ -51,12 +57,21 @@ class DDPMTaskConfig:
     test_timesteps: int = 500
     noise_ensemble: bool = True
     step_ensemble: Sequence[int] = (250, 500, 750)
+    num_eval_slices: Optional[int] = None  # centre depth crop at eval
     reco_mode: str = "single_shot"
+    sampling_steps: int = 50  # DDIM steps of reco_mode 'ddim'
+    # patched (pDDPM) variant, off for the cDDPM
+    patched: bool = False
+    patch_hw: Tuple[int, int] = (48, 48)
+    grid_boxes_eval: str = "equalized"
+    patch_aggregation: str = "avg"
+    inpaint: bool = False
     unet_dim: int = 128
     num_res_blocks: int = 3
     channel_mult: Sequence[int] = (1, 2, 2)
     attention_resolutions: Sequence[int] = (3, 6, 12)
     spatial_transformer: bool = False
+    use_checkpoint: bool = False  # per-ResBlock recompute in training
     dropout_unet: float = 0.0
     fused_attention: bool = True
     norm_precision: str = "compute"
@@ -75,6 +90,11 @@ class DDPMTaskConfig:
             )
         if self.reco_mode != "single_shot":
             raise NotImplementedError(f"reco_mode={self.reco_mode!r} is not ported yet")
+        for name, default in _NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"DDPMTaskConfig.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(only {default!r})")
 
     @property
     def unet_config(self) -> UNetConfig:
