@@ -14,10 +14,14 @@ the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
 reconstruction; ``eval_full_size``: the orchestrated val/test/healthy
 protocol through ``eval/reconstruct.py::VolumeReconstructor.
 batch_call_scored`` and ``eval/harness.py::EvalSession``), the flagship
-train step (``train/loop.py::train_step``), and the run from NIfTI files
-through the port's CLI (``run_from_files``: fit with validation, checkpoints
-and CSV logs, then the val -> test eval from the files, an eval-only
-reload, device against host preprocessing; the files are written by a child
+train step (``train/loop.py::train_step``), SparK pretraining of the
+encoder (``spark_correctness``: one float32 train step and one masked eval,
+card against CPU; ``spark_train_full_size``: the batch-32 bf16 step), and
+the paper's two-stage run from NIfTI files through the port's CLI
+(``run_from_files``: SparK pretraining, then the cDDPM from its encoder, each
+fit with validation, checkpoints and CSV logs, then the val -> test eval from
+the files; an eval-only reload, device against host preprocessing; the files
+are written by a child
 process during the earlier phases that are not timed, and it is stopped while
 a timed one runs). Each path is driven with the
 kernels' launch counters set to 0 just before it and read just after. Every
@@ -79,6 +83,17 @@ TOL_SLICE_FP32 = 2e-3
 # would have made otherwise.
 TRAIN_TOL = {"loss": 1e-5, "grad_encoder": 1e-3, "grad_unet": 1e-3, "stats": 1e-4,
              "param_mean": 1e-7, "param_share": 1e-3, "flipped_share": 1e-4}
+# spark_correctness, card vs CPU in float32 (TF32 off), batch 4, one SparK
+# train step from a common state with the card's choices replayed (the
+# encoder's ReLUs and max-pool, the decoder's ReLU6 at 0) and the active grid
+# shared: TRAIN_TOL's limits, the encoder's gradients as the cDDPM's and the
+# densify + decoder gradients as its UNet's, the parameters' mean gap at
+# lr * 1e-3 of SparK's AdamW lr; then one masked eval of a volume's slices
+# from one key: the reconstruction at TOL_SLICE_FP32, per-slice losses 1e-4
+# relative.
+SPARK_TOL = {**{k: v for k, v in TRAIN_TOL.items() if k not in ("grad_unet", "param_mean")},
+             "grad_decoder": TRAIN_TOL["grad_unet"]}
+TOL_SPARK_EVAL_LOSS = 1e-4
 # eval scoring, card against CPU on the same reconstruction: the residual,
 # maps, counts, thresholds, best dice and squared Hausdorff distances bit for
 # bit; float32 means and sums (reco errors, scores, AUROC/AUPRC) summed in
@@ -1116,8 +1131,10 @@ def _train_one(task, opt, data, vi, si, draws, choices, replay):
                 stats={k: v.double().cpu() for k, v in _running_stats(task).items()})
 
 
-def _train_spread(a, b, lr):
-    """How far step ``a`` is from step ``b``."""
+def _train_spread(a, b, lr, nets=(("encoder", "encoder."), ("unet", "unet."))):
+    """How far step ``a`` is from step ``b``; ``nets`` names the parameter
+    groups (name, prefix) whose worst gradient is reported (the prefix ''
+    takes the parameters no earlier group took)."""
     import torch
 
     def normrel(x, y):
@@ -1128,9 +1145,11 @@ def _train_spread(a, b, lr):
            "stats": max(normrel(a["stats"][k], v) for k, v in b["stats"].items()),
            "param_mean": d.mean().item(), "param_share": (d > lr / 10).double().mean().item(),
            "flipped_share": b["count"]["flipped"] / b["count"]["made"]}
-    for net in ("encoder", "unet"):
-        worst = max((normrel(a["grads"][n], v), n) for n, v in b["grads"].items()
-                    if n.startswith(net + "."))
+    taken = set()
+    for net, prefix in nets:
+        names = [n for n in b["grads"] if n.startswith(prefix) and n not in taken]
+        taken.update(names)
+        worst = max((normrel(a["grads"][n], b["grads"][n]), n) for n in names)
         out[f"grad_{net}"], out[f"grad_{net}_worst"] = worst
     return out
 
@@ -1181,10 +1200,16 @@ def phase_train_correctness():
             require(v <= lim, f"card vs CPU at step {i}: {k} {v} > {lim}")
 
 
-def phase_train_full_size():
-    """The flagship train step at full size: DDPMTaskConfig() defaults (bf16,
-    compute norms, fused attention), batch 32 (configs/datamodule/IXI.yaml),
-    slices gathered from random volumes on the card, aug_intensity on."""
+def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
+    """The train step of ``task`` at batch ``b`` on the card, slices gathered
+    from random volumes with aug_intensity: 3 warm-up steps, then s/step over
+    20 (the launch counters set to 0 just before them and read just after),
+    layer ms between CUDA events over 5, a profiled window of 3 (kernel ms by
+    kind, top kernels, idle share; the table is written to
+    ``profile_file`` in the output directory), and ``n_learn`` steps on the one batch, with the loss at
+    one fixed set of draws (train mode, running statistics restored after
+    each reading) read before and after. Returns (numbers, launches per
+    step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1194,10 +1219,8 @@ def phase_train_full_size():
         train_step,
     )
 
-    b = 32
-    task = _flagship_task("cuda")
     opt = make_optimizer(task)
-    data, vi, si, g = _train_setup(b, "cuda", 7)
+    data, vi, si, g = _train_setup(b, "cuda", seed)
 
     def step():
         return train_step(task, opt, data, vi, si, task.draw_train(g, b))
@@ -1206,26 +1229,16 @@ def phase_train_full_size():
         loss = step()
     require(math.isfinite(loss.item()), "train loss not finite")
 
-    n_count = 5
-    counters = _zero_launches()
-    for _ in range(n_count):
-        loss = step()
-    torch.cuda.synchronize()
-    launches = _read_launches(counters)
-    per_step = {k: v / n_count for k, v in launches.items()}
-    for name in ("fractal_noise_2d", "fused_attention", "attention_fwd_mma"):
-        require(per_step[name] >= 1, f"{name} was not launched on every train step")
-    require(per_step["attention_fwd_scalar"] == 0,
-            "bf16 attention slipped onto the scalar K2 kernel")
-
     reps = 20
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    counters = _zero_launches()
     t0 = time.perf_counter()
     for _ in range(reps):
         loss = step()
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / reps
+    per_step = {k: v / reps for k, v in _read_launches(counters).items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # layer times: the train step's pieces between CUDA events
@@ -1269,11 +1282,9 @@ def phase_train_full_size():
            for ev in kernels[:12]]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_train_step.txt").write_text(
+    (out_dir / profile_file).write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
 
-    # learning: one repeated batch; the loss at one fixed set of draws (train
-    # mode, running statistics restored after each reading) must fall
     fixed = task.draw_train(g, b)
 
     def fixed_loss():
@@ -1283,28 +1294,130 @@ def phase_train_full_size():
         task.load_state_dict(stats, strict=False)
         return value
 
-    n_learn = 50
     before = fixed_loss()
     learn_losses = [step().item() for _ in range(n_learn)]
     after = fixed_loss()
-    emit({"phase": "train_full_size", "nvidia_smi": nvidia_smi(),
-          "config": "DDPMTaskConfig() (bf16, norm_precision=compute, fused_attention), "
-                    "Adam lr 1e-4, aug_intensity",
-          "batch": b, "launches_per_step": per_step, "s_per_step": s_per_step,
-          "train_slices_per_sec": b / s_per_step, "layer_ms": parts,
-          "peak_memory_gb": peak_gb,
-          "profiled_steps": n_prof, "profiled_wall_ms": wall_ms,
-          "profiled_kernel_ms": busy_ms,
-          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-          # the profiler slows the host; against the unprofiled step time
-          "device_idle_share_unprofiled": max(0.0, 1.0 - busy_ms / n_prof
-                                              / (s_per_step * 1e3)),
-          "kernel_ms_per_step_by_kind": by_kind, "top_kernels": top,
-          "fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
-          "learn_steps": n_learn, "learn_loss_first_last": [learn_losses[0],
-                                                             learn_losses[-1]]})
     require(all(math.isfinite(v) for v in learn_losses), "train loss not finite")
     require(after < before, f"fixed-draw loss did not fall: {before} -> {after}")
+    return {"batch": b, "launches_per_step": per_step, "s_per_step": s_per_step,
+            "train_slices_per_sec": b / s_per_step, "layer_ms": parts,
+            "peak_memory_gb": peak_gb,
+            "profiled_steps": n_prof, "profiled_wall_ms": wall_ms,
+            "profiled_kernel_ms": busy_ms,
+            "cuda_kernels_per_step": sum(ev.count for ev in kernels) / n_prof,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            # the profiler slows the host; against the unprofiled step time
+            "device_idle_share_unprofiled": max(0.0, 1.0 - busy_ms / n_prof
+                                                / (s_per_step * 1e3)),
+            "kernel_ms_per_step_by_kind": by_kind, "top_kernels": top,
+            "fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
+            "learn_steps": n_learn,
+            "learn_loss_first_last": [learn_losses[0], learn_losses[-1]]}, per_step
+
+
+def phase_train_full_size():
+    """The flagship train step at full size: DDPMTaskConfig() defaults (bf16,
+    compute norms, fused attention), batch 32 (configs/datamodule/IXI.yaml),
+    slices gathered from random volumes on the card, aug_intensity on."""
+    numbers, per_step = _train_step_numbers(_flagship_task("cuda"), 32, 7,
+                                            "profile_train_step.txt")
+    emit({"phase": "train_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "DDPMTaskConfig() (bf16, norm_precision=compute, fused_attention), "
+                    "Adam lr 1e-4, aug_intensity", **numbers})
+    for name in ("fractal_noise_2d", "fused_attention", "attention_fwd_mma"):
+        require(per_step[name] >= 1, f"{name} was not launched on every train step")
+    require(per_step["attention_fwd_scalar"] == 0,
+            "bf16 attention slipped onto the scalar K2 kernel")
+    return per_step
+
+
+def _spark_task(device, **kw):
+    from conditioned_diffusion_models_uad_torch.models.tasks import SparkTask, SparkTaskConfig
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    return randomize_(SparkTask(SparkTaskConfig(**kw), device=device), 0)
+
+
+def phase_spark_correctness():
+    """SparK pretraining (experiment cDDPM/Spark_2D_pretrain: resnet50,
+    dec_dim 128, 96x96) in float32 with TF32 off, batch 4: one train step on
+    the card, repeated on the CPU from the card's state before it with the
+    card's piecewise choices and active grid; then one masked eval of a
+    volume's 40 slices from one key on both."""
+    import copy
+
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.train.loop import make_optimizer
+    from conditioned_diffusion_models_uad_torch.utils import prng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = 4
+    data, vi, si, g = _train_setup(b, "cpu", 8)
+    cpu_task = _spark_task("cpu", dtype="float32")
+    draws = cpu_task.draw_train(g, b)
+    card_task = _spark_task("cuda", dtype="float32")
+    card_opt, cpu_opt = make_optimizer(card_task), make_optimizer(cpu_task)
+    state = {k: v.detach().cpu().clone() for k, v in card_task.state_dict().items()}
+    opt_state = copy.deepcopy(card_opt.state_dict())
+    choices = []
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    card = _train_one(card_task, card_opt, data, vi, si, draws, choices, replay=False)
+    t1 = time.perf_counter()
+    launches = _read_launches(counters)
+    cpu_task.load_state_dict(state)
+    cpu_opt.load_state_dict(opt_state)
+    cpu = _train_one(cpu_task, cpu_opt, data, vi, si, draws, choices, replay=True)
+    cpu_s = time.perf_counter() - t1
+    lr = card_task.cfg.lr
+    spread = _train_spread(card, cpu, lr, nets=(("encoder", "model.encoder."),
+                                                ("decoder", "")))
+    limit = {**SPARK_TOL, "param_mean": lr * 1e-3}
+
+    # one masked eval from a common state: a volume's 40 slices, one key
+    slices = data[0][0].movedim(-1, 0)[..., None]
+    keys = torch.from_numpy(prng.fold_in(prng.PRNGKey(4141), [0]).astype("int64"))
+    cpu_task.load_state_dict({k: v.cpu() for k, v in card_task.state_dict().items()})
+    reco_card, aux_card = card_task.reconstruct_with_aux(slices, keys)
+    reco_cpu, aux_cpu = cpu_task.reconstruct_with_aux(slices, keys)
+    eval_err = {
+        "reco": (reco_card.cpu() - reco_cpu).abs().max().item(),
+        "loss_per_slice_rel": ((aux_card["loss_per_slice"].cpu() - aux_cpu["loss_per_slice"])
+                               .abs() / aux_cpu["loss_per_slice"].abs()).max().item()}
+    emit({"phase": "spark_correctness",
+          "config": "SparkTaskConfig(dtype='float32') (resnet50, dec_dim 128, 96x96), TF32 off",
+          "batch": b, "loss_cuda": card["loss"], "loss_cpu": cpu["loss"],
+          "choices": cpu["count"], "card_vs_cpu": spread, "limit": limit,
+          "eval_slices": slices.shape[0], "eval_err": eval_err,
+          "eval_tol": {"reco": TOL_SLICE_FP32, "loss_per_slice_rel": TOL_SPARK_EVAL_LOSS},
+          "launches": launches, "cuda_s": t1 - t0, "cpu_s": cpu_s})
+    require(math.isfinite(card["loss"]), "card SparK loss not finite")
+    for k, lim in limit.items():
+        v = spread[k]
+        require(v <= lim, f"SparK card vs CPU: {k} {v} > {lim}")
+    require(bool(torch.isfinite(reco_card).all()) and reco_card.std().item() > 1e-3,
+            "SparK masked reconstruction not finite or constant")
+    require(eval_err["reco"] <= TOL_SLICE_FP32,
+            f"SparK eval reco card vs CPU {eval_err['reco']}")
+    require(eval_err["loss_per_slice_rel"] <= TOL_SPARK_EVAL_LOSS,
+            f"SparK eval loss card vs CPU {eval_err['loss_per_slice_rel']}")
+    require(all(v == 0 for v in launches.values()), f"a kernel launched on SparK: {launches}")
+
+
+def phase_spark_train_full_size():
+    """The SparK train step at full size: SparkTaskConfig() (resnet50,
+    dec_dim 128, mask_ratio 0.65, 96x96 so f = 3 and 3 of 9 sites kept, bf16,
+    AdamW(2e-4, wd 0.05, betas 0.9/0.95)), batch 32 gathered from random
+    volumes on the card, aug_intensity on. It launches none of K1-K3."""
+    numbers, per_step = _train_step_numbers(_spark_task("cuda"), 32, 9,
+                                            "profile_spark_train_step.txt")
+    emit({"phase": "spark_train_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "SparkTaskConfig() (resnet50, dec_dim 128, mask_ratio 0.65, 96x96, bf16, "
+                    "norm_precision float32), AdamW lr 2e-4 wd 0.05 betas (0.9, 0.95), "
+                    "aug_intensity", **numbers})
+    require(all(v == 0 for v in per_step.values()), f"a kernel launched on SparK: {per_step}")
     return per_step
 
 
@@ -1389,14 +1502,18 @@ def _compare_preds(a, b):
 
 
 def phase_run_from_files(gen, work: Path):
-    """The flagship experiment from NIfTI files through the port's CLI
-    (``__main__.main``): fit 2 epochs with a validation after each (best and
-    last checkpoints, CSV logs), then the val -> test eval of Brats21 and
-    MSLUB under eval=device_fast, device preprocessing, full width. The
-    launch counters are set to 0 just before the fit and each eval stage and
-    read just after. Then the artifacts, an eval-only rerun from the 'last'
-    checkpoint (same counts, IDs and thresholds; float rows within
-    TOL_EVAL_REL), and two subjects preprocessed on the card and on the host."""
+    """The paper's two-stage pipeline from NIfTI files through the port's CLI
+    (``__main__.main``), full width, device preprocessing, eval=device_fast:
+    SparK pretraining (experiment=cDDPM/Spark_2D_pretrain), then the
+    flagship experiment with ``pretrained_encoder=<the SparK run>``. Each
+    fits 2 epochs with a validation after each (best and last checkpoints,
+    CSV logs), then evaluates Brats21 and MSLUB val -> test. The launch
+    counters are set to 0 just before each fit and each eval stage and read
+    just after. Then the artifacts, the cDDPM encoder's backbone at its fit's
+    start against the SparK 'best' checkpoint (bit for bit), an eval-only
+    rerun of the cDDPM from its 'last' checkpoint (same counts, IDs and
+    thresholds; float rows within TOL_EVAL_REL), and two subjects
+    preprocessed on the card and on the host."""
     import contextlib
     import csv
     import io
@@ -1413,6 +1530,7 @@ def phase_run_from_files(gen, work: Path):
         load_subject,
     )
     from conditioned_diffusion_models_uad_torch.train import loop
+    from conditioned_diffusion_models_uad_torch.train.checkpoint import load_state
 
     t0 = time.perf_counter()
     out, _ = gen.communicate(timeout=600)
@@ -1421,9 +1539,12 @@ def phase_run_from_files(gen, work: Path):
     data_dir, logs = work / "data", work / "logs"
 
     launches = {"fit": None, "stages": {}}
+    fit_start = {}
     orig_fit, orig_stage = loop.Trainer.fit, orchestrate.run_stage
 
     def fit(self, *a, **kw):
+        fit_start.update({k: v.detach().cpu().clone() for k, v in self.task.state_dict().items()
+                          if k.startswith("encoder.")})
         counters = _zero_launches()
         try:
             return orig_fit(self, *a, **kw)
@@ -1439,12 +1560,14 @@ def phase_run_from_files(gen, work: Path):
             torch.cuda.synchronize()
             launches["stages"][f"{session.dataset}/{session.stage}"] = _read_launches(counters)
 
-    common = ["experiment=cDDPM/DDPM_cond_spark_2D", "eval=device_fast", "logger=csv",
-              "datamodule.preprocess_backend=device", f"datamodule.data_dir={data_dir}",
-              f"log_dir={logs}"]
-    runs = {"fit_eval": ["name=from_files", "trainer.max_epochs=2",
-                         "trainer.check_val_every_n_epoch=1"],
-            "reload": ["name=reload", "only_eval=true",
+    common = ["eval=device_fast", "logger=csv", "datamodule.preprocess_backend=device",
+              f"datamodule.data_dir={data_dir}", f"log_dir={logs}"]
+    cddpm = "experiment=cDDPM/DDPM_cond_spark_2D"
+    fit2 = ["trainer.max_epochs=2", "trainer.check_val_every_n_epoch=1"]
+    runs = {"spark": ["experiment=cDDPM/Spark_2D_pretrain", "name=spark", *fit2],
+            "fit_eval": [cddpm, "name=from_files", *fit2,
+                         f"pretrained_encoder={logs / 'spark'}"],
+            "reload": [cddpm, "name=reload", "only_eval=true",
                        f"load_checkpoint={logs / 'from_files'}", "checkpoint=last"]}
     wall, printed = {}, io.StringIO()
     loop.Trainer.fit, orchestrate.run_stage = fit, run_stage
@@ -1457,6 +1580,8 @@ def phase_run_from_files(gen, work: Path):
             torch.cuda.synchronize()
             wall[name] = time.perf_counter() - t0
             launches[name] = launches["stages"]
+            if name == "spark":
+                launches["spark_fit"] = launches["fit"]
     finally:
         loop.Trainer.fit, orchestrate.run_stage = orig_fit, orig_stage
     eval_launches, reload_launches = launches["fit_eval"], launches["reload"]
@@ -1464,39 +1589,63 @@ def phase_run_from_files(gen, work: Path):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "run_from_files_cli.txt").write_text(printed.getvalue())
 
-    # the artifacts
-    run = logs / "from_files"
-    for rel in ("final_config.yaml", "config_tree.txt", "csv_fold0/metrics.csv",
-                "checkpoints/fold-0/meta.json", "checkpoints/fold-0/best/state.pt",
-                "checkpoints/fold-0/last/state.pt", "0_preds_dict.pkl", "0_timings.json"):
-        require((run / rel).is_file(), f"run from files: {rel} missing")
-    with open(run / "csv_fold0/metrics.csv", newline="") as f:
-        rows = list(csv.DictReader(f))
-    train_loss = [float(r["value"]) for r in rows if r["key"] == "train/loss"]
-    val_loss = [float(r["value"]) for r in rows if r["key"] == "val/loss_comb"]
-    require(len(train_loss) == 2 and len(val_loss) == 2
-            and all(math.isfinite(v) for v in train_loss + val_loss),
-            f"run from files: train/loss {train_loss}, val/loss_comb {val_loss}")
-    meta = json.loads((run / "checkpoints/fold-0/meta.json").read_text())
-    require(meta["last"]["step"] == 2 and meta["best"]["step"] in (1, 2), f"meta.json {meta}")
-    ckpt_mb = {k: (run / f"checkpoints/fold-0/{k}/state.pt").stat().st_size / 2**20
-               for k in ("best", "last")}
-    preds = pickle.loads((run / "0_preds_dict.pkl").read_bytes())
-    summary = {}
+    # the artifacts of both stages
+    def artifacts(run):
+        for rel in ("final_config.yaml", "config_tree.txt", "csv_fold0/metrics.csv",
+                    "checkpoints/fold-0/meta.json", "checkpoints/fold-0/best/state.pt",
+                    "checkpoints/fold-0/last/state.pt", "0_preds_dict.pkl", "0_timings.json"):
+            require((run / rel).is_file(), f"run from files: {run.name}/{rel} missing")
+        with open(run / "csv_fold0/metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        train_loss = [float(r["value"]) for r in rows if r["key"] == "train/loss"]
+        val_loss = [float(r["value"]) for r in rows if r["key"] == "val/loss_comb"]
+        require(len(train_loss) == 2 and len(val_loss) == 2
+                and all(math.isfinite(v) for v in train_loss + val_loss),
+                f"run from files {run.name}: train/loss {train_loss}, val/loss_comb {val_loss}")
+        meta = json.loads((run / "checkpoints/fold-0/meta.json").read_text())
+        require(meta["last"]["step"] == 2 and meta["best"]["step"] in (1, 2),
+                f"{run.name} meta.json {meta}")
+        ckpt_mb = {k: (run / f"checkpoints/fold-0/{k}/state.pt").stat().st_size / 2**20
+                   for k in ("best", "last")}
+        preds = pickle.loads((run / "0_preds_dict.pkl").read_bytes())
+        summary = {}
+        for stage in ("val", "test"):
+            for name in FILES_SETS:
+                d = preds[stage][name]
+                summary[f"{name}/{stage}"] = {k: d[k] for k in ("DicePerVolMean",
+                                                                "AUPRCPerVolMean")}
+                require(len(d["IDs"]) == 4 and all(math.isfinite(v)
+                                                    for v in summary[f"{name}/{stage}"].values()),
+                        f"run from files {run.name} {name}/{stage}: {summary[f'{name}/{stage}']}")
+        timings = json.loads((run / "0_timings.json").read_text())
+        return train_loss, val_loss, meta, ckpt_mb, preds, summary, timings
+
+    spark_run = logs / "spark"
+    (sp_train_loss, sp_val_loss, sp_meta, sp_ckpt_mb, sp_preds, sp_summary,
+     sp_timings) = artifacts(spark_run)
     for stage in ("val", "test"):
         for name in FILES_SETS:
-            d = preds[stage][name]
-            summary[f"{name}/{stage}"] = {k: d[k] for k in ("DicePerVolMean", "AUPRCPerVolMean")}
-            require(len(d["IDs"]) == 4 and all(math.isfinite(v)
-                                                for v in summary[f"{name}/{stage}"].values()),
-                    f"run from files {name}/{stage}: {summary[f'{name}/{stage}']}")
-    timings = json.loads((run / "0_timings.json").read_text())
+            reco = sp_preds[stage][name]["AnomalyScoreRecoPerVol"]
+            require(len(reco) == 4 and all(math.isfinite(v) and v > 0 for v in reco),
+                    f"SparK eval {name}/{stage} scores {reco}")
+    run = logs / "from_files"
+    train_loss, val_loss, meta, ckpt_mb, preds, summary, timings = artifacts(run)
+    # the cDDPM's fit started from the SparK 'best' checkpoint's backbone
+    spark_best = load_state(str(spark_run / "checkpoints/fold-0/best"))["model"]
+    backbone = [k for k in fit_start if not k.startswith("encoder.fc.")]
+    require(len(backbone) == sum(k.startswith("model.encoder.") for k in spark_best) > 0,
+            "the cDDPM encoder and the SparK backbone have other keys")
+    differ = [k for k in backbone if not torch.equal(fit_start[k], spark_best["model." + k])]
+    require(not differ, f"the cDDPM fit did not start from the SparK encoder: {differ[:5]}")
     reload_preds = pickle.loads((logs / "reload" / "0_preds_dict.pkl").read_bytes())
     differ, worst = _compare_preds(preds, reload_preds)
     require(not differ, f"eval-only reload differs in {differ}")
     require(worst["rel"] <= TOL_EVAL_REL, f"eval-only reload float rows: {worst}")
 
-    # the kernels on each path
+    # the kernels on each path: none on SparK's
+    for where, got in ([("SparK fit", launches["spark_fit"])]
+                       + [(f"SparK eval {k}", v) for k, v in launches["spark"].items()]):
+        require(all(v == 0 for v in got.values()), f"run from files, {where}: {got}")
     fit_l = launches["fit"]
     for where, got in [("fit", fit_l)] + [(f"eval {k}", v) for k, v in eval_launches.items()]:
         require(got["fractal_noise_2d"] >= 1 and got["attention_fwd_mma"] >= 1,
@@ -1535,10 +1684,26 @@ def phase_run_from_files(gen, work: Path):
     stages = timings["eval"]
     n_eval = sum(v["volumes"] for v in stages.values())
     eval_s = sum(v["total"] + v["test_end"] for v in stages.values())
+    sp_fit, sp_stages = sp_timings["fit"], sp_timings["eval"]
+    sp_n_eval = sum(v["volumes"] for v in sp_stages.values())
+    sp_eval_s = sum(v["total"] + v["test_end"] for v in sp_stages.values())
+    spark = {"config": "experiment=cDDPM/Spark_2D_pretrain (resnet50, dec_dim 128, "
+                       "mask_ratio 0.65, 96x96, bf16, AdamW), trainer.max_epochs=2",
+             "cli_wall_s": wall["spark"], "ingest_s": sp_timings["ingest_s"],
+             "s_per_step": sum(sp_fit["epoch_s"]) / sp_fit["steps"],
+             "epoch_s": sp_fit["epoch_s"], "val_s": sp_fit["val_s"], "ckpt_s": sp_fit["ckpt_s"],
+             "ckpt_mb": sp_ckpt_mb, "train_loss": sp_train_loss, "val_loss": sp_val_loss,
+             "meta": sp_meta, "eval_volumes": sp_n_eval, "eval_s": sp_eval_s,
+             "eval_volumes_per_sec": sp_n_eval / sp_eval_s,
+             "eval_loader_wait_s": sum(v["load"] for v in sp_stages.values()),
+             "eval_stages": sp_stages, "metrics": sp_summary,
+             "launches_fit": launches["spark_fit"], "launches_eval": launches["spark"]}
     emit({"phase": "run_from_files", "nvidia_smi": nvidia_smi(),
-          "config": "experiment=cDDPM/DDPM_cond_spark_2D (full width), trainer.max_epochs=2, "
+          "config": "experiment=cDDPM/DDPM_cond_spark_2D (full width) pretrained_encoder="
+                    "<the SparK stage's run>, trainer.max_epochs=2, "
                     "check_val_every_n_epoch=1, eval=device_fast, logger=csv, "
                     "preprocess_backend=device",
+          "spark_stage": spark, "encoder_from_spark": len(backbone),
           "raw_shape": list(FILES_RAW_SHAPE), "train_subjects": 32, "batch": 32,
           "data_wait_s": data_wait_s, "cli_wall_s": wall,
           "ingest_s": timings["ingest_s"], "ingest_subjects": 34,
@@ -1559,7 +1724,10 @@ def phase_run_from_files(gen, work: Path):
           "launches_fit": fit_l, "launches_eval": eval_launches,
           "launches_reload_eval": reload_launches})
     return {"fit_epoch": {k: v / epochs for k, v in fit_l.items()},
-            "eval_from_files": eval_total}
+            "eval_from_files": eval_total,
+            "spark_fit_epoch": {k: v / epochs for k, v in launches["spark_fit"].items()},
+            "spark_eval_from_files": {k: sum(v[k] for v in launches["spark"].values())
+                                      for k in fit_l}}
 
 
 def main() -> int:
@@ -1606,6 +1774,9 @@ def run_phases(gen, work: Path) -> int:
     phase_train_correctness()
     with paused(gen):
         train_launches = phase_train_full_size()
+    phase_spark_correctness()
+    with paused(gen):
+        spark_launches = phase_spark_train_full_size()
     files = phase_run_from_files(gen, work)
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
     k2_mma["at_train_shape"] = {key: k2["mma_train"][key] for key in (
@@ -1625,7 +1796,10 @@ def run_phases(gen, work: Path) -> int:
                                    "eval_protocol": eval_run["launches"][name],
                                    "eval_group": eval_run["launches"][name] / eval_run["groups"],
                                    "fit_epoch": files["fit_epoch"][name],
-                                   "eval_from_files": files["eval_from_files"][name]}
+                                   "eval_from_files": files["eval_from_files"][name],
+                                   "spark_train_step": spark_launches[name],
+                                   "spark_fit_epoch": files["spark_fit_epoch"][name],
+                                   "spark_eval_from_files": files["spark_eval_from_files"][name]}
     for rec in (k3_cluster, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[

@@ -19,7 +19,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 USAGE = """usage: python -m conditioned_diffusion_models_uad_torch experiment=cDDPM/<name> [key=value ...]
 
 experiments: cDDPM/DDPM_cond_spark_2D (north-star) | cDDPM/DDPM | cDDPM/test
-             (cDDPM/DDPM_patched and cDDPM/Spark_2D_pretrain are not ported)
+             | cDDPM/Spark_2D_pretrain (SparK pretraining of the encoder; then
+             cDDPM/DDPM_cond_spark_2D pretrained_encoder=<that run's dir>)
+             (cDDPM/DDPM_patched is not ported)
 overrides:   dotted keys with YAML-typed values, e.g.
              trainer.max_epochs=100 'model.step_ensemble=[250,500,750]'
              only_eval=true load_checkpoint=<run-dir> datamodule.mode=t2

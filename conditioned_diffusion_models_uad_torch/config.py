@@ -14,12 +14,11 @@ scattered ``cfg.get(...)`` defaults:
 * a `.env` file loader standing in for dotenv (run.py:16)
 
 The composed dict is materialized into the typed configs consumed by each
-subsystem: DDPMTaskConfig (models), DataConfig (data), TrainerConfig (train),
-EvalConfig (eval). The port's RunConfig adds one field, ``device`` (default
-``cuda``; ``device=cpu`` asks for the CPU). Not ported: the SparK task
-(``task=Spark_2D``) and the SparK-encoder import (``pretrained_encoder``);
-both raise NotImplementedError, as do the DDPMTaskConfig fields of the
-patched and DDIM variants away from their defaults.
+subsystem: DDPMTaskConfig or, with ``task=Spark_2D``, SparkTaskConfig
+(models), DataConfig (data), TrainerConfig (train), EvalConfig (eval). The
+port's RunConfig adds one field, ``device`` (default ``cuda``; ``device=cpu``
+asks for the CPU). Not ported: the DDPMTaskConfig fields of the patched and
+DDIM variants away from their defaults (they raise NotImplementedError).
 """
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ import yaml
 
 from .data.datamodules import DataConfig
 from .eval.harness import EvalConfig
-from .models.tasks import DDPMTaskConfig
+from .models.tasks import DDPMTaskConfig, SparkTaskConfig
 from .train.loop import TrainerConfig
 
 _ENV_RE = re.compile(r"\$\{env:([A-Za-z_][A-Za-z0-9_]*)(?:,([^}]*))?\}")
@@ -281,10 +280,12 @@ class RunConfig:
     run_dir_template: bool = False
     override_dirname: str = ""
     n_devices: Optional[int] = None
-    task: str = "DDPM_2D"  # 'DDPM_2D' ('Spark_2D' is not ported)
-    pretrained_encoder: Optional[str] = None  # SparK encoder import: not ported
+    task: str = "DDPM_2D"  # 'DDPM_2D' | 'Spark_2D'
+    # the cDDPM's encoder backbone from a SparK run directory (this port's)
+    # or a reference torch SparK .ckpt file, before the fit
+    pretrained_encoder: Optional[str] = None
     device: str = "cuda"  # the port's entry points run here; 'cpu' asks for the CPU
-    model: Any = None  # DDPMTaskConfig
+    model: Any = None  # DDPMTaskConfig | SparkTaskConfig
     datamodule_name: str = "IXI"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
@@ -361,12 +362,8 @@ def materialize(tree: dict) -> RunConfig:
     # (reference: image 96x96 = imageDim / rescaleFactor, DDPM_2D.py:37-60);
     # derive image_hw unless the experiment pins it explicitly
     model_d.setdefault("image_hw", list(data_cfg.model_hw))
-    if task_name == "Spark_2D":
-        raise NotImplementedError("task=Spark_2D (SparK pretraining) is not ported yet")
-    if tree.get("pretrained_encoder") is not None:
-        raise NotImplementedError(
-            "pretrained_encoder (the SparK encoder import) is not ported yet")
-    model = DDPMTaskConfig(**_filter_fields(DDPMTaskConfig, model_d))
+    model_cls = SparkTaskConfig if task_name == "Spark_2D" else DDPMTaskConfig
+    model = model_cls(**_filter_fields(model_cls, model_d))
 
     known = {f.name for f in dataclasses.fields(RunConfig)}
     top = {k: v for k, v in tree.items() if k in known and k not in

@@ -10,8 +10,10 @@ device by ``fused.group_eval_core``; its packed buffer is the group's one
 host fetch.
 
 Where the JAX reconstructor takes keys ([2], or [G, 2] of fold_in(key, i)),
-this one takes simplex seeds [G, E] or a ``torch.Generator``, as
-``DDPMTask.reconstruct_with_aux`` does. One card: no mesh.
+this one takes the draws its task's ``reconstruct_with_aux`` takes, one row
+a volume, or a ``torch.Generator`` to draw them from (``task.draw_seeds``):
+simplex seeds [G, E] for the cDDPM, the JAX-package keys [G, 2] of
+fold_in(key, i) for SparK. One card: no mesh.
 """
 from __future__ import annotations
 
@@ -71,13 +73,15 @@ class VolumeReconstructor:
         }
 
     def _seeds(self, seeds, generator, groups):
+        """The task's draws for ``groups`` volumes, one row a volume (the
+        task checks the row width)."""
         if seeds is None:
             if generator is None:
-                raise ValueError("pass seeds [G, E] or a torch.Generator")
+                raise ValueError("pass seeds (one row a volume) or a torch.Generator")
             return self.task.draw_seeds(generator, groups)
-        seeds = torch.as_tensor(seeds, dtype=torch.int32)
+        seeds = torch.as_tensor(seeds)
         if seeds.dim() != 2 or seeds.shape[0] != groups:
-            raise ValueError(f"seeds must be [{groups}, E], got {tuple(seeds.shape)}")
+            raise ValueError(f"seeds must have {groups} rows, got {tuple(seeds.shape)}")
         return seeds
 
     def __call__(self, vol_hwd, seeds=None, *, generator: Optional[torch.Generator] = None,
@@ -119,8 +123,7 @@ class VolumeReconstructor:
 
     def latent_len(self) -> int:
         """Width of the conditioning latent in the packed buffer."""
-        cfg = self.task.cfg
-        return cfg.cond_dim if cfg.condition else 1
+        return self.task.latent_len
 
     def batch_call_scored(self, subs, flags: dict, seeds=None, *,
                           generator: Optional[torch.Generator] = None):

@@ -1,4 +1,4 @@
-"""ResNet conditioning encoder (counterpart of
+"""ResNet conditioning encoder and SparK masked backbone (counterpart of
 ``conditioned_diffusion_models_uad_tpu/models/resnet.py``), eval and
 training mode.
 
@@ -8,11 +8,17 @@ Parameter names follow torchvision (``conv1``/``bn1``/``layerX.i.convJ``/
 ``MaskedBatchNorm`` follows flax, not ``nn.BatchNorm2d``: eps 1e-5, biased
 batch variance, running statistics updated as ``0.9*ra + 0.1*batch``, and the
 statistics applied in float32 or folded into one compute-dtype ``x*a+b``.
-The SparK active-site mask is not ported yet.
+
+SparK's sparse convolutions are dense convolutions with masked outputs: given
+an ``active`` grid [B, f, f] of sites at stride 32, every conv, pool and
+block output is multiplied by the grid upsampled to its resolution, and each
+BatchNorm takes its statistics over the active positions only and writes
+zeros elsewhere. ``active=None`` is the plain (cDDPM encoder) path.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,10 +29,30 @@ from .unet import Conv2d, Linear
 MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 
 
+def upsample_mask(active: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest-upsample an active-site grid [B, fh, fw] (bool) to a float32
+    mask [B, 1, h, w]."""
+    rh, rw = h // active.shape[1], w // active.shape[2]
+    m = active.repeat_interleave(rh, dim=1).repeat_interleave(rw, dim=2)
+    return m[:, None].float()
+
+
+def masked(h: torch.Tensor, active: Optional[torch.Tensor]):
+    """``h`` times the active mask at its resolution, and that float32 mask
+    (``h`` and None when ``active`` is None)."""
+    if active is None:
+        return h, None
+    m = upsample_mask(active, h.shape[2], h.shape[3])
+    return h * m.to(h.dtype), m
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm (``mask=None``). Eval mode applies the running statistics;
+    """BatchNorm over the positions where ``mask`` [B, 1, H, W] is 1 (all
+    positions when it is None). Eval mode applies the running statistics;
     training mode applies the batch's float32 mean and biased variance and
-    moves the running statistics toward them."""
+    moves the running statistics toward them. With a mask, the statistics
+    are weighted moments (n = sum of the mask + 1e-8, var = max(E[x²] −
+    mean², 0)) and the output is zero where the mask is."""
 
     def __init__(self, channels: int, *, dtype: torch.dtype = torch.float32,
                  fold_apply: bool = False, eps: float = 1e-5):
@@ -39,11 +65,17 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            if mask is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = xf.var(dim=(0, 2, 3), unbiased=False)
+            else:
+                n = mask.sum() + 1e-8
+                xw = xf * mask
+                mean = xw.sum(dim=(0, 2, 3)) / n
+                var = torch.clamp_min((xw * xf).sum(dim=(0, 2, 3)) / n - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)
                 self.running_var.copy_(MOMENTUM * self.running_var + (1 - MOMENTUM) * var)
@@ -53,9 +85,12 @@ class MaskedBatchNorm(nn.Module):
             a = torch.rsqrt(var + self.eps) * self.weight
             b = self.bias - mean * a
             dt = self.dtype
-            return x.to(dt) * a.to(dt)[:, None, None] + b.to(dt)[:, None, None]
+            y = x.to(dt) * a.to(dt)[:, None, None] + b.to(dt)[:, None, None]
+            return y if mask is None else y * mask.to(dt)
         y = ((x.float() - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
              * self.weight[:, None, None] + self.bias[:, None, None])
+        if mask is not None:
+            y = y * mask
         return y.to(x.dtype if x.dtype != torch.float32 else self.dtype)
 
 
@@ -76,11 +111,11 @@ class BasicBlock(nn.Module):
         if cin != width or stride != 1:
             self.downsample = nn.Sequential(_conv(cin, width, 1, stride), bn(width))
 
-    def forward(self, x):
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = self.bn2(self.conv2(h))
+    def forward(self, x, active=None):
+        h = F.relu(self.bn1(*masked(self.conv1(x), active)))
+        h = self.bn2(*masked(self.conv2(h), active))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample[1](*masked(self.downsample[0](x), active))
         return F.relu(h + x)
 
 
@@ -100,12 +135,12 @@ class BottleneckBlock(nn.Module):
         if cin != out or stride != 1:
             self.downsample = nn.Sequential(_conv(cin, out, 1, stride), bn(out))
 
-    def forward(self, x):
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
-        h = self.bn3(self.conv3(h))
+    def forward(self, x, active=None):
+        h = F.relu(self.bn1(*masked(self.conv1(x), active)))
+        h = F.relu(self.bn2(*masked(self.conv2(h), active)))
+        h = self.bn3(*masked(self.conv3(h), active))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample[1](*masked(self.downsample[0](x), active))
         return F.relu(h + x)
 
 
@@ -140,7 +175,8 @@ class ResNetConfig:
 
 class ResNetBackbone(nn.Module):
     """Trunk: 7x7/2 stem, BN, ReLU, 3x3/2 max-pool (pad 1), four stages.
-    ``forward`` takes NCHW and returns the last stage's features."""
+    ``pyramid`` takes NCHW and returns the four stages' features [C2 /4,
+    C3 /8, C4 /16, C5 /32]; ``forward_features`` the last of them."""
 
     def __init__(self, cfg: ResNetConfig):
         super().__init__()
@@ -161,12 +197,21 @@ class ResNetBackbone(nn.Module):
                 cin = w * block_cls.expansion
             setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
 
-    def forward_features(self, x):
-        h = F.relu(self.bn1(self.conv1(x.to(self.cfg.compute_dtype))))
-        h = F.max_pool2d(h, 3, 2, 1)
+    def pyramid(self, x, active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """With ``active`` [B, f, f] (bool, f = H / 32), SparK's order: stem
+        conv, mask, BN over the active sites, ReLU, max-pool, mask, and a
+        mask after every block."""
+        h = F.relu(self.bn1(*masked(self.conv1(x.to(self.cfg.compute_dtype)), active)))
+        h, _ = masked(F.max_pool2d(h, 3, 2, 1), active)
+        feats = []
         for i in range(1, 5):
-            h = getattr(self, f"layer{i}")(h)
-        return h
+            for block in getattr(self, f"layer{i}"):
+                h, _ = masked(block(h, active), active)
+            feats.append(h)
+        return feats
+
+    def forward_features(self, x):
+        return self.pyramid(x)[-1]
 
 
 class ResNetEncoder(ResNetBackbone):

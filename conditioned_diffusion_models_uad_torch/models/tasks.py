@@ -1,13 +1,16 @@
-"""The cDDPM task: conditioning encoder + UNet + schedule, with the
+"""The tasks (counterpart of ``conditioned_diffusion_models_uad_tpu/models/
+tasks.py``): the cDDPM (conditioning encoder + UNet + schedule, with the
 single-shot volume reconstruction the eval (and serving) path runs and the
-training objective (counterpart of ``DDPMTaskConfig``/``DDPMTask`` in
-``conditioned_diffusion_models_uad_tpu/models/tasks.py``).
+training objective), SparK pretraining of its encoder, and the import of
+the pretrained encoder into the cDDPM.
 
 Where the JAX task takes a PRNG key ([2], or [G, 2] for G grouped volumes),
 this one takes explicit draws: for a reconstruction, simplex seeds ``[G, E]``
 (int32, one per volume and noise draw) or a ``torch.Generator`` from which it
 draws them, uniform in [0, 2**31 - 1) like ``randint(key, (), 0, int32max)``
-in the JAX package; for a training step, a ``TrainDraws``.
+in the JAX package; for a training step, a ``TrainDraws``. SparK takes per-volume JAX-package keys
+[G, 2] for a reconstruction (its eval masks, bit-equal to that package's)
+and a ``SparkDraws`` for a training step.
 Not ported yet: the iterative samplers (``reco_mode`` 'ancestral'/'ddim'),
 UNet dropout in training, and the patched (pDDPM) variant.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,7 +27,17 @@ from ..data.augment import AugDraws, draw_aug_intensity
 from ..diffusion import GaussianDiffusionConfig, diffusion_call, make_schedule
 from ..ops.simplex import make_noise_fn
 from ..utils.device import DeviceLike, resolve_device
+from .losses import l1_ae_loss, l1_error
 from .resnet import ResNetConfig, ResNetEncoder
+from .spark import (
+    SparKConfig,
+    SparKModel,
+    random_mask,
+    random_mask_from_key,
+    random_mask_multi_ratio,
+    random_mask_uniform_ratio,
+    spark_spatial_loss,
+)
 from .unet import UNetConfig, UNetModel
 
 INT32_MAX = 2**31 - 1
@@ -182,6 +196,11 @@ class DDPMTask(nn.Module):
         finally:
             self.encoder.train(mode)
 
+    @property
+    def latent_len(self) -> int:
+        """Width of ``reconstruct_with_aux``'s 'latent_per_slice'."""
+        return self.cfg.cond_dim if self.cfg.condition else 1
+
     def draw_seeds(self, generator: torch.Generator, groups: int = 1) -> torch.Tensor:
         """Simplex seeds [groups, E] uniform in [0, 2**31 - 1)."""
         return torch.randint(0, INT32_MAX, (groups, self.cfg.ensemble_size),
@@ -299,3 +318,212 @@ class DDPMTask(nn.Module):
             "comb_prior": loss,
             "combi_prior": 0.0,
         }
+
+
+# --------------------------------------------------------------------------- #
+# SparK masked-image-modeling pretraining
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class SparkTaskConfig:
+    """SparK pretraining knobs (same names and defaults as the JAX
+    package's ``SparkTaskConfig``; experiment cDDPM/Spark_2D_pretrain)."""
+
+    image_hw: Tuple[int, int] = (96, 96)
+    backbone: str = "resnet50"
+    mask_ratio: float = 0.65
+    # ranged / multi-ratio masking (reference mask(), spark/Spark_2D.py:120-141):
+    # mask_ratio_hi != mask_ratio enables the range; mask_uniform picks one
+    # U(lo, hi) ratio per step, else per-batch-third ratios are permuted
+    mask_ratio_hi: Optional[float] = None
+    mask_uniform: bool = True
+    dec_dim: int = 128
+    pix_norm: int = 0
+    loss_l2: bool = True
+    loss_on_mask: bool = True
+    mask_loss_weight: float = 1.0  # δ in full-L1 + δ·masked (ref Spark_2D.py:26-32)
+    # eval score when loss_on_mask is off: L1_AE recon_error + delta_mask ·
+    # masked loss (reference Spark_2D.forward, Spark_2D.py:26-33)
+    delta_mask: float = 0.0
+    loss_strategy: str = "sum"  # L1_AE 'sum' | 'mean'
+    use_pos_emb: bool = False
+    dtype: str = "bfloat16"
+    # BatchNorm apply: 'float32' normalises in f32; 'compute' folds into one
+    # compute-dtype a·x+b (statistics stay f32)
+    norm_precision: str = "float32"
+    # AdamW (reference Spark_2D.py:123-124; train/loop.py::make_optimizer)
+    lr: float = 2e-4
+    weight_decay: float = 0.05
+    b1: float = 0.9
+    b2: float = 0.95
+
+    @property
+    def spark_config(self) -> SparKConfig:
+        return SparKConfig(
+            backbone=self.backbone,
+            input_size=self.image_hw[0],
+            mask_ratio=self.mask_ratio,
+            dec_dim=self.dec_dim,
+            pix_norm=self.pix_norm,
+            loss_l2=self.loss_l2,
+            use_pos_emb=self.use_pos_emb,
+            dtype=self.dtype,
+            norm_precision=self.norm_precision,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SparkDraws:
+    """The random draws of one SparK training step: the active-site grid
+    [B, f, f] (bool) and the augmentation draws (None: no augmentation)."""
+
+    active: torch.Tensor
+    aug: Optional[AugDraws] = None
+
+
+class SparkTask(nn.Module):
+    """Masked-image-modeling pretraining of the conditioning encoder.
+
+    ``SparkTask(cfg)`` runs on ``cuda``; ``device="cpu"`` runs on the CPU.
+    As ``DDPMTask``, the module stays in eval mode and ``loss`` puts the
+    model's BatchNorm in the mode its ``train`` argument asks for during the
+    call."""
+
+    def __init__(self, cfg: SparkTaskConfig = SparkTaskConfig(),
+                 device: DeviceLike = None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.scfg = cfg.spark_config
+        self.model = SparKModel(self.scfg)
+        self.to(self.device, memory_format=torch.channels_last)
+        self.eval()
+
+    latent_len = 0  # SparK's test_step records no latent space
+
+    def forward(self, x01: torch.Tensor, active: torch.Tensor, *, train: bool = False):
+        """The model on slices [B, H, W, 1] and the active grid, with
+        BatchNorm in training (batch statistics, running ones updated) or
+        eval mode: the reconstruction [B, H, W, 1] float32."""
+        mode = self.model.training
+        self.model.train(train)
+        try:
+            return self.model(x01.to(self.device), active.to(self.device))
+        finally:
+            self.model.train(mode)
+
+    def draw_mask(self, generator: torch.Generator, b: int) -> torch.Tensor:
+        """A training step's active grid [b, f, f]: ``len_keep`` sites a
+        sample, or the ranged / multi-ratio variants when ``mask_ratio_hi``
+        differs from ``mask_ratio``."""
+        cfg, f = self.cfg, self.scfg.fmap_size
+        if cfg.mask_ratio_hi is not None and cfg.mask_ratio_hi != cfg.mask_ratio:
+            if cfg.mask_uniform:
+                return random_mask_uniform_ratio(generator, b, f, cfg.mask_ratio,
+                                                 cfg.mask_ratio_hi)
+            return random_mask_multi_ratio(generator, b, f)
+        return random_mask(generator, b, f, self.scfg.len_keep)
+
+    def draw_train(self, generator: torch.Generator, b: int, *,
+                   augment: bool = True) -> SparkDraws:
+        """One training step's draws on the generator's device: the active
+        grid, and the aug_intensity draws when ``augment``."""
+        active = self.draw_mask(generator, b)
+        return SparkDraws(active, draw_aug_intensity(generator, b) if augment else None)
+
+    def loss(self, batch: dict, draws: SparkDraws, *, train: bool = True):
+        """The masked reconstruction objective (reference
+        Spark_2D.training_step, Spark_2D.py:26-50) on ``{'vol': [B, H, W,
+        1]}``: the masked-patch loss when ``loss_on_mask``, else the full L1
+        plus ``mask_loss_weight`` times it. Returns (scalar, {'reco',
+        'active'})."""
+        cfg = self.cfg
+        x01 = batch["vol"].to(self.device).float()
+        active = draws.active.to(self.device)
+        reco = self(x01, active, train=train)
+        masked = spark_spatial_loss(self.scfg, x01, reco, active)
+        loss = masked if cfg.loss_on_mask else (
+            l1_error(reco, x01).mean() + cfg.mask_loss_weight * masked)
+        return loss, {"reco": reco, "active": active}
+
+    def draw_seeds(self, generator: torch.Generator, groups: int = 1) -> torch.Tensor:
+        """Eval keys [groups, 2] uniform in [0, 2**32) (int64)."""
+        return torch.randint(0, 2**32, (groups, 2), generator=generator, dtype=torch.int64,
+                             device=generator.device)
+
+    def eval_mask(self, keys, depth: int) -> torch.Tensor:
+        """The active grid [depth, f, f] of G stacked volumes from their keys
+        [G, 2]: volume v's depth // G slices take ``random_mask_from_key(
+        keys[v], ...)``, so a volume draws the mask it draws alone (and the
+        JAX package's mask for the same key)."""
+        keys = torch.as_tensor(keys).cpu().numpy().astype(np.int64).astype(np.uint32)
+        if keys.ndim != 2 or keys.shape[1] != 2:
+            raise ValueError(f"keys must be [G, 2], got {keys.shape}")
+        g = keys.shape[0]
+        if depth % g:
+            raise ValueError(f"depth {depth} does not split into {g} volumes")
+        f = self.scfg.fmap_size
+        return torch.cat([random_mask_from_key(k, depth // g, f, self.scfg.len_keep)
+                          for k in keys]).to(self.device)
+
+    @torch.no_grad()
+    def reconstruct(self, slices01, keys=None, *, generator=None, groups: int = 1):
+        """The masked reconstruction [D, H, W, 1] (see ``reconstruct_with_aux``)."""
+        return self.reconstruct_with_aux(slices01, keys, generator=generator,
+                                         groups=groups)[0]
+
+    @torch.no_grad()
+    def reconstruct_with_aux(self, slices01: torch.Tensor, keys=None, *,
+                             generator: Optional[torch.Generator] = None, groups: int = 1):
+        """Masked reconstruction of a slice stack [D, H, W, 1] of G same-depth
+        volumes, each masked from its key [G, 2] (reference Spark_2D.test_step,
+        Spark_2D.py:60-116). Returns (reco, aux): aux 'loss_per_slice' [D] is
+        the masked loss when ``loss_on_mask``, else L1_AE recon_error +
+        ``delta_mask`` times it (Spark_2D.forward, :26-33); 'latent_per_slice'
+        an empty [D, 0] column."""
+        cfg = self.cfg
+        if keys is None:
+            if generator is None:
+                raise ValueError("pass keys [G, 2] or a torch.Generator")
+            keys = self.draw_seeds(generator, groups)
+        x01 = slices01.to(self.device).float()
+        d = x01.shape[0]
+        active = self.eval_mask(keys, d)
+        reco = self(x01, active)
+        loss_ps = spark_spatial_loss(self.scfg, x01, reco, active, per_sample=True)
+        if not cfg.loss_on_mask:
+            l1 = l1_ae_loss(reco, x01, cfg.loss_strategy, per_sample=True)
+            loss_ps = l1["recon_error"] + cfg.delta_mask * loss_ps
+        aux = {"loss_per_slice": loss_ps,
+               "latent_per_slice": torch.zeros((d, 0), dtype=torch.float32, device=self.device)}
+        return reco, aux
+
+    def anomaly_scores(self, loss: float) -> dict:
+        """SparK eval scores (reference Spark_2D.test_step, :100-112): Reco
+        is the forward loss; Reg and the Comb* family are 0."""
+        return {"reco": loss, "reg": 0.0, "comb": 0.0, "combi": 0.0,
+                "comb_prior": 0.0, "combi_prior": 0.0}
+
+
+# --------------------------------------------------------------------------- #
+# SparK pretrain -> cDDPM conditioning encoder
+# --------------------------------------------------------------------------- #
+def import_spark_encoder(ddpm_state: dict, spark_state: dict) -> dict:
+    """A ``DDPMTask`` state_dict with its encoder backbone (weights and
+    running statistics) replaced by the ``SparkTask`` state_dict's
+    ``model.encoder.*`` and its ``encoder.fc`` head kept (the reference's
+    ``sparse_encoder.sp_cnn.* -> encoder.*`` remap without ``fc``,
+    DDPM_2D.py:79-96)."""
+    out = dict(ddpm_state)
+    for k in ddpm_state:
+        if k.startswith("encoder.") and not k.startswith("encoder.fc."):
+            src = "model.encoder." + k[len("encoder."):]
+            if src not in spark_state:
+                raise KeyError(f"{src} missing from the SparK state (another backbone?)")
+            out[k] = spark_state[src]
+    return out
+
+
+TASKS = {
+    "DDPM_2D": DDPMTask,
+    "Spark_2D": SparkTask,
+}

@@ -2,7 +2,10 @@
 (counterpart of ``conditioned_diffusion_models_uad_tpu/orchestrate.py``;
 reference src/train.py:31-250).
 
-* seed + fold loop over ``start_fold..num_folds``
+* seed + fold loop over ``start_fold..num_folds``; the task by name
+  (``task=DDPM_2D`` the cDDPM, ``task=Spark_2D`` SparK pretraining)
+* ``pretrained_encoder``: the cDDPM's encoder backbone from a SparK run
+  (a run directory of this port, or a reference torch SparK ``.ckpt``)
 * fit with best/last checkpoints and resume; ``only_eval`` restores a
   checkpoint (a run directory, a best/last directory, or a reference
   Lightning ``.ckpt`` file) and skips the fit
@@ -14,8 +17,10 @@ reference src/train.py:31-250).
 Each eval volume draws its noise from the seeds the JAX package gives it:
 volume i of a stage takes ``fold_in(PRNGKey(seed + 1000 + fold), i)``, and
 its ensemble member m the seed ``randint(split(key_i, E)[m], (), 0,
-2**31 - 1)`` (``volume_seeds``, through ``utils/prng.py``), so grouping never
-moves a volume's metrics. ``run_stage`` is the per-stage group loop.
+2**31 - 1)`` (``volume_seeds``, through ``utils/prng.py``); a SparK volume
+takes the key ``fold_in(PRNGKey(seed + 1000 + fold), i)`` itself, from
+which it draws its mask (``volume_draws``). Grouping never moves a
+volume's metrics. ``run_stage`` is the per-stage group loop.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from .eval.fused import parse_packed
 from .eval.harness import FUSED_MIN_VOXELS, EvalSession
 from .eval.reconstruct import VolumeReconstructor
 from .log import CSVLogger, MultiLogger, WandbLogger, log_hyperparameters, summarize
-from .models.tasks import DDPMTask
+from .models.tasks import TASKS, DDPMTask, SparkTask, import_spark_encoder
 from .train.checkpoint import find_run_checkpoint, load_state
 from .train.loop import Trainer
 from .utils import prng
@@ -45,12 +50,12 @@ from .utils.prefetch import PrefetchLoader
 log = logging.getLogger(__name__)
 
 
-def build_task(cfg: RunConfig, fold: int = 0) -> DDPMTask:
-    """The run's task on ``cfg.device``; its initial weights come from the
-    CPU generator seeded with seed + fold."""
+def build_task(cfg: RunConfig, fold: int = 0):
+    """The run's task (``TASKS[cfg.task]``) on ``cfg.device``; its initial
+    weights come from the CPU generator seeded with seed + fold."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed + fold)
-        return DDPMTask(cfg.model, device=cfg.device)
+        return TASKS[cfg.task](cfg.model, device=cfg.device)
 
 
 def eval_key(seed: int, fold: int) -> np.ndarray:
@@ -64,6 +69,15 @@ def volume_seeds(key, idxs: Iterable[int], ensemble: int) -> torch.Tensor:
     rows = [[int(prng.randint(k)) for k in prng.split(prng.fold_in(key, int(i)), ensemble)]
             for i in idxs]
     return torch.tensor(rows, dtype=torch.int32)
+
+
+def volume_draws(task, key, idxs: Iterable[int]) -> torch.Tensor:
+    """What ``task.reconstruct_with_aux`` takes for volumes ``idxs`` of a
+    stage, one row a volume: a SparK task the keys ``fold_in(key, i)`` [G, 2]
+    (int64 holding the uint32 words), the cDDPM its ``volume_seeds``."""
+    if isinstance(task, SparkTask):
+        return torch.from_numpy(prng.fold_in(key, np.asarray(list(idxs))).astype(np.int64))
+    return volume_seeds(key, idxs, task.cfg.ensemble_size)
 
 
 def _load_torch_state_dict(path: str) -> dict:
@@ -103,17 +117,51 @@ def reference_to_port(sd: dict) -> dict:
     return out
 
 
-def load_weights(task: DDPMTask, cfg: RunConfig, fold: int) -> None:
+def _run_state(src: str, which: str, fold: int, device) -> dict:
+    """The task state_dict of a run directory's (or a best/last directory's)
+    checkpoint."""
+    path = src
+    if os.path.basename(path) not in ("best", "last"):
+        path = find_run_checkpoint(path, which, fold)
+    return load_state(path, map_location=device)["model"]
+
+
+def load_weights(task, cfg: RunConfig, fold: int) -> None:
     """``only_eval``: the weights of ``load_checkpoint`` (or this run's own
     checkpoints) into ``task``."""
     src = cfg.load_checkpoint or os.path.join(cfg.run_dir, "checkpoints")
     if os.path.isfile(src):  # a reference Lightning checkpoint file
+        if not isinstance(task, DDPMTask):
+            raise ValueError("a torch .ckpt file loads into the cDDPM task family only "
+                             "(Lightning DDPM_2D checkpoints)")
         task.load_state_dict(reference_to_port(_load_torch_state_dict(src)))
         return
-    path = src
-    if os.path.basename(path) not in ("best", "last"):
-        path = find_run_checkpoint(path, cfg.checkpoint, fold)
-    task.load_state_dict(load_state(path, map_location=task.device)["model"])
+    task.load_state_dict(_run_state(src, cfg.checkpoint, fold, task.device))
+
+
+def reference_spark_encoder(sd: dict) -> dict:
+    """A reference torch SparK pretrain state_dict -> the ``model.encoder.*``
+    keys ``import_spark_encoder`` reads: ``sparse_encoder.sp_cnn.*`` without
+    its ``fc.*`` head (reference DDPM_2D.py:84-96)."""
+    prefix = "sparse_encoder.sp_cnn."
+    out = {"model.encoder." + k[len(prefix):]: v for k, v in sd.items()
+           if k.startswith(prefix) and not k[len(prefix):].startswith("fc.")}
+    if not out:
+        raise ValueError(f"no '{prefix}*' keys in the SparK checkpoint")
+    return out
+
+
+def load_pretrained_encoder(task: DDPMTask, cfg: RunConfig, fold: int) -> None:
+    """``pretrained_encoder``: the cDDPM's encoder backbone (weights and
+    running statistics) from a SparK run directory of this port (its
+    ``checkpoint`` best/last) or a reference torch SparK ``.ckpt`` file; the
+    ``fc`` head keeps its fresh weights."""
+    src = cfg.pretrained_encoder
+    if os.path.isfile(src):
+        spark = reference_spark_encoder(_load_torch_state_dict(src))
+    else:
+        spark = _run_state(src, cfg.checkpoint, fold, "cpu")
+    task.load_state_dict(import_spark_encoder(task.state_dict(), spark))
 
 
 def _dev(sub: dict, k: str):
@@ -125,7 +173,7 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
               fused_dispatch: bool = True, score_fn=None, warn=None) -> dict:
     """One eval stage: the subjects (in dataset order) grouped by shape into
     reconstruction calls of ``volumes_per_call`` volumes, each volume with
-    its own seeds (``volume_seeds(key, [i], E)``); a full-size group of one
+    its own draws (``volume_draws(task, key, [i])``); a full-size group of one
     shape reconstructs and scores in one call (``batch_call_scored``) and is
     committed on a scorer thread from its one packed fetch, other groups
     score volume by volume (``session.test_step``). A short tail group is
@@ -133,7 +181,6 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
     'load' (waiting for the loader), 'recon' (dispatching reconstructions),
     'wait' (waiting for scorer threads), 'total', and 'volumes'."""
     task = recon.task
-    e = task.cfg.ensemble_size
     group_n = max(1, int(volumes_per_call))
     n_workers = max(1, int(scorer_threads))
     warn = warn or (lambda reason, msg, *a: None)
@@ -150,7 +197,7 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
 
         def seeds_of(group):
             idxs = [i for i, _ in group]
-            return volume_seeds(key, idxs + [idxs[-1]] * (group_n - len(idxs)), e)
+            return volume_draws(task, key, idxs + [idxs[-1]] * (group_n - len(idxs)))
 
         def score_group(group, diff_g, packed_g, flags, llen):
             statics = flags["statics"]
@@ -248,14 +295,15 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
     return ph
 
 
-def evaluate(cfg: RunConfig, task: DDPMTask, fold: int, logger,
+def evaluate(cfg: RunConfig, task, fold: int, logger,
              timings: Optional[dict] = None) -> dict:
     """Val-threshold-fit -> test protocol over the configured test sets.
     Writes ``<run>/<fold>_preds_dict.pkl`` and returns the preds dict; each
     stage's ``run_stage`` seconds (and its 'test_end') go into ``timings``
     under '<set>/<stage>'."""
     dev = cfg.device
-    recon = VolumeReconstructor(task, num_eval_slices=cfg.model.num_eval_slices, device=dev)
+    recon = VolumeReconstructor(task, num_eval_slices=getattr(cfg.model, "num_eval_slices", None),
+                                device=dev)
     key = eval_key(cfg.seed, fold)
     preds = {"val": {}, "test": {}}
     allowed = SETS_BY_MODE.get(cfg.data.mode, list(EVAL_MODULES))
@@ -343,6 +391,8 @@ def train(cfg: RunConfig) -> dict:
         trainer_cfg.seed = cfg.seed
         trainer_cfg.resume = trainer_cfg.resume or cfg.resume_train
         timings = {}
+        if cfg.pretrained_encoder and isinstance(task, DDPMTask):
+            load_pretrained_encoder(task, cfg, fold)
         if cfg.only_eval:
             load_weights(task, cfg, fold)
         else:

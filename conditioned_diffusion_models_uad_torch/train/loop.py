@@ -1,12 +1,13 @@
-"""The cDDPM training loop (counterpart of
+"""The training loop of the cDDPM and SparK tasks (counterpart of
 ``conditioned_diffusion_models_uad_tpu/train/loop.py``; reference
 src/train.py:31-250 and the Lightning Trainer semantics it relies on).
 
 One step gathers the batch's slices from volumes already on the device,
-applies the intensity augmentation, evaluates ``DDPMTask.loss`` with the
-encoder in training mode, back-propagates and takes an Adam step. Random
-draws come in as a ``TrainDraws`` (``DDPMTask.draw_train``), so a step is a
-function of the state, the indices and the draws.
+applies the intensity augmentation, evaluates the task's ``loss`` with its
+BatchNorm in training mode, back-propagates and takes an Adam (AdamW for
+SparK) step. Random draws come in as the task's draws (``TrainDraws`` from
+``DDPMTask.draw_train``, ``SparkDraws`` from ``SparkTask.draw_train``), so
+a step is a function of the state, the indices and the draws.
 
 ``Trainer.fit`` runs the epochs: the index stream of epoch e comes from
 ``np.random.default_rng([seed + fold, e])`` (the JAX package's), validation
@@ -35,10 +36,17 @@ from .checkpoint import FoldCheckpointer
 Data = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
-def make_optimizer(task) -> torch.optim.Adam:
+def make_optimizer(task) -> torch.optim.Optimizer:
     """Adam(lr) over every parameter: b1 0.9, b2 0.999, eps 1e-8 outside the
-    square root, bias-corrected, the update of ``optax.adam(lr)``."""
-    return torch.optim.Adam(task.parameters(), lr=task.cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    square root, bias-corrected, the update of ``optax.adam(lr)``. A task
+    whose config has ``weight_decay`` (SparK) takes AdamW(lr, (b1, b2), wd)
+    over every parameter, as ``optax.adamw``: both decay the parameter
+    before the step, so they agree to rounding."""
+    cfg = task.cfg
+    if hasattr(cfg, "weight_decay"):
+        return torch.optim.AdamW(task.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2),
+                                 weight_decay=cfg.weight_decay, eps=1e-8)
+    return torch.optim.Adam(task.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def gathered_batch(data: Data, vol_idx, slice_idx, aug=None) -> dict:

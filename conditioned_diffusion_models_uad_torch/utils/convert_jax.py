@@ -8,15 +8,18 @@ and ``convert_reference_resnet_state_dict`` (``utils/convert_torch.py``):
     conv2d  flax [kh, kw, I, O]  -> torch [O, I, kh, kw]
     dense   flax kernel [I, O]   -> torch [O, I]
     norms   flax scale/bias      -> torch weight/bias (+ running_mean/var)
+    conv transpose flax [kh, kw, I, O] -> torch [I, O, kh, kw], flipped in
+            kh and kw (flax's ConvTranspose does not flip its kernel)
     attention qkv flax Dense [C, 3C] (qkv-major) -> Conv1d [3C, C, 1]
             (head-major), proj_out Dense [C, C] -> Conv1d [C, C, 1]
 
 Every map is a linear re-indexing, so a tree shaped like the params
 (gradients, Adam moments) converts the same way (``convert_jax_ddpm_params``,
-``convert_jax_adam_state``).
+``convert_jax_adam_state``, ``convert_jax_spark_variables``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,6 +42,14 @@ def _conv(sd, key, p, bias=True):
 def _dense(sd, key, p):
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
     sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _bn(sd, key, p, s=None):
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    if s is not None:
+        sd[f"{key}.running_mean"] = _t(s["mean"])
+        sd[f"{key}.running_var"] = _t(s["var"])
 
 
 def _gn(sd, key, p):
@@ -137,13 +148,7 @@ def convert_jax_resnet_variables(
     bk = params["backbone"]
     bks = None if batch_stats is None else batch_stats["backbone"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def put_bn(key, p, s):
-        sd[f"{key}.weight"] = _t(p["scale"])
-        sd[f"{key}.bias"] = _t(p["bias"])
-        if s is not None:
-            sd[f"{key}.running_mean"] = _t(s["mean"])
-            sd[f"{key}.running_var"] = _t(s["var"])
+    put_bn = functools.partial(_bn, sd)
 
     def stats(name):
         return None if bks is None else bks[name]
@@ -187,6 +192,34 @@ def convert_jax_ddpm_params(params: dict, task_cfg,
             task_cfg.encoder_backbone,
         )
         sd.update({f"encoder.{k}": v for k, v in enc.items()})
+    return sd
+
+
+def convert_jax_spark_variables(params: dict, batch_stats: Optional[dict],
+                                scfg) -> Dict[str, torch.Tensor]:
+    """JAX ``SparKModel`` params/batch_stats (the trees under 'params' and
+    'batch_stats'; gradients or AdamW moments in place of the params with
+    ``batch_stats=None``) -> ``SparKModel`` state_dict (``SparkTask``'s keys
+    without the ``model.`` prefix). ``scfg`` is the ``SparKConfig``."""
+    bs = batch_stats or {}
+    sd = {f"encoder.{k}": v for k, v in convert_jax_resnet_variables(
+        {"backbone": params["encoder"]},
+        None if batch_stats is None else {"backbone": bs["encoder"]}, scfg.backbone).items()}
+    for i in range(scfg.pyramid):
+        _bn(sd, f"densify_bn.{i}", params[f"densify_bn{i}"], bs.get(f"densify_bn{i}"))
+        sd[f"mask_token.{i}"] = _t(np.asarray(params[f"mask_token{i}"]).transpose(0, 3, 1, 2))
+        _conv(sd, f"densify_proj.{i}", params[f"densify_proj{i}"])
+    dec, dec_bs = params["decoder"], bs.get("decoder", {})
+    for i in range(5):
+        p, s = dec[f"stage{i}"], dec_bs.get(f"stage{i}", {}).get("block", {})
+        key = f"decoder.stages.{i}"
+        kernel = np.asarray(p["up"]["kernel"])[::-1, ::-1]
+        sd[f"{key}.up.weight"] = _t(kernel.transpose(2, 3, 0, 1))
+        sd[f"{key}.up.bias"] = _t(p["up"]["bias"])
+        for j in (1, 2):
+            _conv(sd, f"{key}.block.conv{j}", p["block"][f"conv{j}"], bias=False)
+            _bn(sd, f"{key}.block.bn{j}", p["block"][f"bn{j}"], s.get(f"bn{j}"))
+    _conv(sd, "decoder.proj", dec["proj"])
     return sd
 
 

@@ -2,8 +2,9 @@
 runs.
 
 A train step's gradient is piecewise smooth: each ReLU of the ResNet encoder
+(and of SparK's decoder, whose ReLU6 clips at 0 through the same ``relu``)
 chooses by the sign of its input, the stem's max-pool by the largest value of
-each window, and the L1 loss by the sign of each pixel's error. Two float32
+each window, and an L1 loss by the sign of each pixel's error. Two float32
 runs that sum their convolutions in other orders (the card and the CPU, or
 this package and the JAX one) differ by ~1e-6 relative, so the few of these
 millions of choices whose input lies that close to its threshold can go the
@@ -24,12 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from ..diffusion import gaussian
-from ..models import resnet
+from ..models import losses, resnet, spark
 
 
 class _Choices:
-    """Stands in for ``torch.nn.functional`` inside ``models/resnet.py`` and
-    ``diffusion/gaussian.py``."""
+    """Stands in for ``torch.nn.functional`` inside ``models/resnet.py``,
+    ``models/spark.py``, ``models/losses.py`` and ``diffusion/gaussian.py``."""
 
     def __init__(self, choices: List[torch.Tensor], replay: bool):
         self.choices, self.replay, self.next = choices, replay, 0
@@ -84,8 +85,9 @@ class _Choices:
 
 @contextlib.contextmanager
 def recorded_choices(choices: List[torch.Tensor], *, replay: bool, loss: bool = True):
-    """Within the block, every ResNet forward of this package (and, with
-    ``loss``, every L1 objective of ``diffusion/gaussian.py``) appends each
+    """Within the block, every ResNet and SparK forward of this package (and,
+    with ``loss``, every L1 objective of ``diffusion/gaussian.py`` and
+    ``models/losses.py::l1_error``) appends each
     ReLU's mask (input > 0), each max-pool's argmax indices and each L1
     error's sign to ``choices`` in call order (``replay=False``), or takes
     them from ``choices`` in that order instead of choosing (``replay=True``):
@@ -95,7 +97,7 @@ def recorded_choices(choices: List[torch.Tensor], *, replay: bool, loss: bool = 
     replaying run's own choice would differ (for a max-pool, a different
     value; a tie is no flip). Choices are kept on the CPU."""
     proxy = _Choices(choices, replay)
-    modules = [resnet, gaussian] if loss else [resnet]
+    modules = [resnet, spark] + ([gaussian, losses] if loss else [])
     saved = [m.F for m in modules]
     for m in modules:
         m.F = proxy

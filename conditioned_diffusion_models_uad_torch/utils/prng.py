@@ -1,6 +1,6 @@
 """The threefry2x32 keys of the JAX package, in numpy (counterpart of the
 ``jax.random`` calls that package makes: ``PRNGKey``, ``split``,
-``fold_in`` and ``randint`` for int32).
+``fold_in``, ``randint`` for int32 and ``uniform`` for float32).
 
 Bit-equal to ``jax.random`` with its defaults (``jax_default_prng_impl``
 threefry2x32, ``jax_threefry_partitionable`` on, 32-bit integers): a key is a
@@ -8,7 +8,8 @@ threefry2x32, ``jax_threefry_partitionable`` on, 32-bit integers): a key is a
 ``i`` and the bits drawn at flat position ``i`` all hash the counter pair
 (i >> 32, i & 0xFFFFFFFF) under the parent key. The port draws each eval
 volume's noise seeds with it, so a volume gets the seeds the JAX package
-gives it (``orchestrate.volume_seeds``).
+gives it (``orchestrate.volume_seeds``), and each SparK eval volume its
+mask (``models/spark.py::eval_random_mask``).
 """
 from __future__ import annotations
 
@@ -94,3 +95,18 @@ def randint(key, shape=(), minval: int = 0, maxval: int = INT32_MAX) -> np.ndarr
     with np.errstate(over="ignore"):
         offset = ((higher % span) * mult + lower % span) % span
     return (lo + offset.astype(np.int64)).astype(np.int32).reshape(tuple(shape))
+
+
+def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits of each draw as the mantissa of a float in [1, 2), minus 1,
+    scaled to [minval, maxval) with one rounding (XLA:CPU contracts the
+    multiply-add) and clamped below at minval. Bits are drawn by flat
+    position, so the first rows of a draw of shape (n + k, m) are the draw
+    of shape (n, m)."""
+    bits = random_bits(key, tuple(shape))
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scaled = (floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(np.float32)
+    return np.maximum(lo, scaled).reshape(tuple(shape))

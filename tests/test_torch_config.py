@@ -1,9 +1,9 @@
 """config.py against the JAX package's: compose + materialize of every
 configs/experiment/cDDPM/*.yaml that the port supports give the same dict
 and the same typed configs (every field the two packages share), with group
-re-selection, dotted overrides and ${env:...} interpolation; the
-experiments the port does not support raise NotImplementedError naming what
-is missing. The port's RunConfig adds one field, device. Exact."""
+re-selection, dotted overrides and ${env:...} interpolation, SparK
+pretraining and the encoder import included; the experiments the port does
+not support raise NotImplementedError naming what is missing. The port's RunConfig adds one field, device. Exact."""
 import dataclasses
 import os
 
@@ -57,8 +57,6 @@ def test_compose_and_materialize_match_jax(experiment, overrides, monkeypatch):
 
 @pytest.mark.parametrize("experiment,overrides,what", [
     ("cDDPM/DDPM_patched", [], "patched"),
-    ("cDDPM/Spark_2D_pretrain", [], "Spark_2D"),
-    ("cDDPM/DDPM_cond_spark_2D", ["pretrained_encoder=/runs/spark"], "pretrained_encoder"),
     ("cDDPM/DDPM_cond_spark_2D", ["model.use_checkpoint=true"], "use_checkpoint"),
     ("cDDPM/DDPM_cond_spark_2D", ["model.sampling_steps=20"], "sampling_steps"),
 ])
@@ -67,6 +65,26 @@ def test_unsupported_experiments_raise(experiment, overrides, what):
     J.materialize(J.compose(CONFIGS, experiment, overrides))  # the JAX package runs it
     with pytest.raises(NotImplementedError, match=what):
         P.materialize(tree)
+
+
+@pytest.mark.parametrize("experiment,overrides", [
+    ("cDDPM/Spark_2D_pretrain", []),
+    ("cDDPM/Spark_2D_pretrain", ["model.backbone=resnet18", "model.dec_dim=64",
+                                 "model.mask_ratio_hi=0.75", "model.loss_on_mask=false",
+                                 "model.delta_mask=0.5", "trainer.max_epochs=3", "seed=7",
+                                 "eval=device_fast", "logger=csv"]),
+    ("cDDPM/DDPM_cond_spark_2D", ["pretrained_encoder=/runs/spark", "checkpoint=last"]),
+])
+def test_spark_and_pretrained_encoder_match_jax(experiment, overrides, monkeypatch):
+    """SparK pretraining and the encoder import compose and materialize as in
+    the JAX package (task Spark_2D -> SparkTaskConfig)."""
+    monkeypatch.setenv("DATA_DIR", "/data/here")
+    tree = P.compose(CONFIGS, experiment, overrides)
+    assert tree == J.compose(CONFIGS, experiment, overrides)
+    got, want = P.materialize(tree), J.materialize(tree)
+    _same_typed(got, want)
+    assert type(got.model).__name__ == type(want.model).__name__
+    assert (got.task == "Spark_2D") == (type(got.model).__name__ == "SparkTaskConfig")
 
 
 def test_override_errors_and_env_file(tmp_path, monkeypatch):
