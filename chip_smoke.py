@@ -16,17 +16,25 @@ protocol through ``eval/reconstruct.py::VolumeReconstructor.
 batch_call_scored`` and ``eval/harness.py::EvalSession``), the flagship
 train step (``train/loop.py::train_step``), SparK pretraining of the
 encoder (``spark_correctness``: one float32 train step and one masked eval,
-card against CPU; ``spark_train_full_size``: the batch-32 bf16 step), and
-the paper's two-stage run from NIfTI files through the port's CLI
-(``run_from_files``: SparK pretraining, then the cDDPM from its encoder, each
-fit with validation, checkpoints and CSV logs, then the val -> test eval from
-the files; an eval-only reload, device against host preprocessing; the files
+card against CPU; ``spark_train_full_size``: the batch-32 bf16 step), the
+iterative reconstruction (``iterative_correctness``: DDIM and a truncated
+ancestral chain in float32, card against CPU; ``iterative_full_size``:
+DDIM-50 and a 50-step ancestral chain on an eval group, bf16), the patched
+DDPM (``patched_correctness``: the float32 grid eval and train step, card
+against CPU; ``patched_full_size``: an eval group and the batch-32 step with
+``use_checkpoint`` on and off), and the run from NIfTI files through the
+port's CLI (``run_from_files``: SparK pretraining, then the cDDPM from its
+encoder, each fit with validation, checkpoints and CSV logs, then the val ->
+test eval from the files; an eval-only reload, the pDDPM fit and eval, an
+eval-only DDIM rerun, device against host preprocessing; the files
 are written by a child
 process during the earlier phases that are not timed, and it is stopped while
 a timed one runs). Each path is driven with the
 kernels' launch counters set to 0 just before it and read just after. Every
-phase prints one JSON line; any failed check raises, so the process exits
-non-zero. The last line is the device line ``{"ok": true, "device": {...}}``.
+phase prints one JSON line (all of them also go to
+``chiprun_out/chip_smoke.jsonl``); any failed check raises, so the process
+exits non-zero. The last line is the device line ``{"ok": true, "device":
+{...}}``.
 
 Without CUDA, or run from a directory that holds no port package, it exits
 non-zero before printing any result.
@@ -120,8 +128,14 @@ else:
     _IMPORT_ERROR = None
 
 
+LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # every emitted line, in full
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def require(cond: bool, what: str) -> None:
@@ -204,14 +218,19 @@ def phase_k1():
 
     g = torch.Generator().manual_seed(0)
     recs = []
-    # the reconstruction's 6 fields, the train step's one, a ragged shape
-    for shape, n in (((96, 96), 6), ((96, 96), 1), ((37, 130), 3)):
+    # the reconstruction's 6 fields, the train step's one, a ragged shape, a
+    # sampler step's 2 (one a volume) and a pDDPM eval group's 8 (4 boxes x 2)
+    for shape, n in (((96, 96), 6), ((96, 96), 1), ((37, 130), 3), ((96, 96), 2),
+                     ((96, 96), 8)):
         seeds = torch.randint(0, 2**31 - 1, (n,), generator=g, dtype=torch.int32)
         seeds[0] = 2**31 - 2
         rec = k1_record(seeds.cuda(), shape)
         require(rec["max_abs_err"] <= TOL_K1, f"K1 {shape} err {rec['max_abs_err']}")
         recs.append(rec)
     emit({"phase": "k1", "results": recs})
+    for at, rec in (("at_sampler_step_shape", recs[3]), ("at_pddpm_group_shape", recs[4])):
+        recs[0][at] = {key: rec[key] for key in ("shape", "max_abs_err", "ms", "graph_ms",
+                                                  "plain_ms", "bound_ms", "bound_by")}
     return recs[0]
 
 
@@ -275,6 +294,8 @@ def phase_k2():
     cases = [
         ("mma", (576, 576, 3, 4, 64), torch.bfloat16, True),     # eval, batch 576
         ("mma_train", (32, 576, 3, 4, 64), torch.bfloat16, True),  # train, batch 32
+        ("mma_pddpm", (448, 576, 3, 4, 64), torch.bfloat16, True),  # pDDPM eval group
+        ("mma_iterative", (112, 576, 3, 4, 64), torch.bfloat16, True),  # a sampler step
         (None, (3, 100, 3, 2, 64), torch.bfloat16, True),        # ragged S
         (None, (2, 64, 3, 2, 32), torch.bfloat16, True),         # D = 32
         (None, (2, 600, 3, 2, 64), torch.bfloat16, True),        # S beyond the mma limit
@@ -1142,7 +1163,8 @@ def _train_spread(a, b, lr, nets=(("encoder", "encoder."), ("unet", "unet."))):
 
     d = torch.cat([(a["params"][n] - v).abs().reshape(-1) for n, v in b["params"].items()])
     out = {"loss": abs(a["loss"] - b["loss"]),
-           "stats": max(normrel(a["stats"][k], v) for k, v in b["stats"].items()),
+           "stats": max((normrel(a["stats"][k], v) for k, v in b["stats"].items()),
+                        default=0.0),
            "param_mean": d.mean().item(), "param_share": (d > lr / 10).double().mean().item(),
            "flipped_share": b["count"]["flipped"] / b["count"]["made"]}
     taken = set()
@@ -1425,7 +1447,321 @@ def phase_spark_train_full_size():
 # image_dim [192, 192, 100] on every axis, so the crop happens; 32 IXI train
 # subjects (one batch-32 step an epoch), 2 val, 2 test, and 4 val + 4 test
 # for each lesion set of the datamodule's testsets
+# iterative_correctness: the flagship config in float32 (TF32 off), 2 volumes
+# of 2 slices under the same keys and weights, card against CPU: a DDIM run
+# of ITER_STEPS['ddim'] steps from t = 500 and an ancestral run truncated at
+# t = ITER_STEPS['ancestral']. Each step feeds the previous one's output back
+# through the UNet and through coefficients that grow near t = 0, so the
+# single call's error grows with the steps. The card's first run (H100,
+# PERF.md PR 8) measured 2.7e-5 (DDIM) and 1.5e-5 (ancestral); the limits
+# leave ~20x for the spread of other inputs and steps.
+ITER_STEPS = {"ddim": 4, "ancestral": 5}
+TOL_ITERATIVE = {"ddim": 5e-4, "ancestral": 5e-4}
+
+
+def _iterative_task(device, mode, steps, **kw):
+    """The flagship task with ``reco_mode`` ``mode`` taking ``steps`` UNet
+    calls: DDIM steps from test_timesteps 500, or an ancestral chain
+    truncated at t = steps."""
+    kw["sampling_steps" if mode == "ddim" else "test_timesteps"] = steps
+    return _flagship_task(device, reco_mode=mode, **kw)
+
+
+def phase_iterative_correctness():
+    """The iterative reconstruction (``reco_mode`` 'ddim' and 'ancestral')
+    on the card and on the CPU in float32, same weights and keys [2, 2]: the
+    reconstructions within TOL_ITERATIVE, the NaN loss sentinel, and K1
+    launched once a step (one field per volume, both volumes in one launch;
+    the last step draws none, the initial noising one) and K2 once a UNet
+    call."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(12)
+    slices = torch.rand((4, 96, 96, 1), generator=g)
+    keys = torch.randint(0, 2**32, (2, 2), generator=g, dtype=torch.int64)
+    runs = {}
+    for mode, steps in ITER_STEPS.items():
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            task = _iterative_task(dev, mode, steps, dtype="float32")
+            counters = _zero_launches()
+            t0 = time.perf_counter()
+            reco, aux = task.reconstruct_with_aux(slices, keys)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = _read_launches(counters)
+            secs[dev] = time.perf_counter() - t0
+            outs[dev] = (reco.cpu(), {k: v.cpu() for k, v in aux.items()})
+            del task
+        reco = outs["cuda"][0]
+        require(reco.shape == (4, 96, 96, 1) and bool(torch.isfinite(reco).all()),
+                f"{mode}: reconstruction {tuple(reco.shape)} not finite")
+        require(reco.std().item() > 1e-3, f"{mode}: reconstruction is constant")
+        require(bool(torch.isnan(outs["cuda"][1]["loss_per_slice"]).all()),
+                f"{mode}: the loss sentinel is not NaN")
+        runs[mode] = {"steps": steps, "launches": launches, "cuda_s": secs["cuda"],
+                      "cpu_s": secs["cpu"], "tol": TOL_ITERATIVE[mode],
+                      "max_abs_err_vs_cpu": (reco - outs["cpu"][0]).abs().max().item(),
+                      "latent_err": (outs["cuda"][1]["latent_per_slice"]
+                                     - outs["cpu"][1]["latent_per_slice"]).abs().max().item()}
+    emit({"phase": "iterative_correctness",
+          "config": "DDPMTaskConfig(dtype='float32', reco_mode=ddim|ancestral), TF32 off",
+          "volumes": 2, "slices": 4, "runs": runs})
+    for mode, r in runs.items():
+        require(r["max_abs_err_vs_cpu"] <= r["tol"],
+                f"{mode}: card vs CPU {r['max_abs_err_vs_cpu']} > {r['tol']}")
+        require(r["latent_err"] <= TOL_SLICE_FP32, f"{mode}: latent {r['latent_err']}")
+        got = r["launches"]
+        require(got["fractal_noise_2d"] == r["steps"],
+                f"{mode}: K1 launched {got['fractal_noise_2d']} times in {r['steps']} steps")
+        require(got["fused_attention"] == r["steps"] == got["attention_fwd_scalar"],
+                f"{mode}: K2 launches {got} in {r['steps']} UNet calls (float32: scalar)")
+
+
+def phase_iterative_full_size():
+    """The iterative reconstruction at the flagship width (DDPMTaskConfig(),
+    bf16) on one eval group of 2 volumes at EVAL_SHAPE (depth 50, padded to
+    56: 112 slices a UNet call) through ``VolumeReconstructor.batch_call``
+    with the orchestrator's keys: DDIM with 50 steps from t = 500 (timed with
+    the launch counters; the idle share from a 5-step call under the
+    profiler),
+    then the ancestral chain truncated at t = 50 (the full 500-step chain is
+    cut to 50 steps for time; the width is not cut). Returns the launches of
+    each mode's call."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+    from conditioned_diffusion_models_uad_torch.models.tasks import DDPMTask
+    from conditioned_diffusion_models_uad_torch.orchestrate import eval_key, volume_draws
+
+    vols = [s["vol"] for s in _eval_subjects(2, 31, True)]
+    out, launches = {}, {}
+    for mode, steps in (("ddim", 50), ("ancestral", 50)):
+        task = _iterative_task("cuda", mode, steps)
+        recon = VolumeReconstructor(task)
+        draws = volume_draws(task, eval_key(3141, 0), [0, 1])
+        torch.cuda.synchronize()
+        counters = _zero_launches()
+        t0 = time.perf_counter()
+        res = recon.batch_call(vols, draws)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches[mode] = got = _read_launches(counters)
+        for reco, aux in res:
+            require(reco.shape == EVAL_SHAPE and bool(torch.isfinite(reco).all()),
+                    f"{mode} full size: reconstruction not finite")
+            require(reco.float().std().item() > 1e-3, f"{mode} full size: constant")
+            require(math.isnan(float(aux["loss"])), f"{mode} full size: loss is not NaN")
+        require(got["fractal_noise_2d"] == steps and got["attention_fwd_mma"] == steps
+                and got["attention_fwd_scalar"] == 0,
+                f"{mode} full size: launches {got} in {steps} steps")
+        slices = 2 * 56
+        out[mode] = {"steps": steps, "from_t": task.cfg.test_timesteps if mode == "ddim"
+                     else steps, "unet_batch": slices, "launches": got, "s_per_call": call_s,
+                     "s_per_volume": call_s / 2,
+                     "slice_denoises_per_sec": steps * slices / call_s}
+        if mode == "ddim":  # the idle share, from a 5-step call on the same weights
+            short = DDPMTask(dataclasses.replace(task.cfg, sampling_steps=5), device="cuda")
+            short.load_state_dict(task.state_dict())
+            short_recon = VolumeReconstructor(short)
+            short_recon.batch_call(vols, draws)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                short_recon.batch_call(vols, draws)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels = kernel_events(prof)
+            busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+            by_kind = {}
+            for ev in kernels:
+                kind = kernel_kind(ev.key)
+                by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3 / 5
+            out[mode]["profiled_5_steps"] = {
+                "wall_ms": wall_ms, "kernel_ms": busy_ms,
+                "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                "kernel_ms_per_step_by_kind": by_kind}
+            del short, short_recon
+        del task, recon
+    emit({"phase": "iterative_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "DDPMTaskConfig(reco_mode=ddim, sampling_steps=50) from t=500; "
+                    "reco_mode=ancestral at test_timesteps=50 (cut from 500)",
+          "volumes": 2, "shape": list(EVAL_SHAPE), **out})
+    return launches
+
+
+def _patched_cfg(**kw):
+    """The DDPM_patched experiment's task config, as the port's CLI
+    materializes it (unconditional UNet 128, mult (1, 2, 2), 3 res blocks,
+    96x96, 48x48 patches, inpainting, ResBlock recompute, bf16)."""
+    import dataclasses
+
+    from conditioned_diffusion_models_uad_torch import config
+
+    tree = config.compose(str(ROOT / "configs"), "cDDPM/DDPM_patched", [])
+    return dataclasses.replace(config.materialize(tree).model, **kw)
+
+
+def _patched_task(device, **kw):
+    from conditioned_diffusion_models_uad_torch.models.tasks import DDPMTask
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    return randomize_(DDPMTask(_patched_cfg(**kw), device=device), 0)
+
+
+def phase_patched_correctness():
+    """The pDDPM in float32 (TF32 off), card against CPU, same weights: the
+    grid eval reconstruction of 2 volumes of 2 slices under keys [2, 2]
+    (4 boxes in one chunk: one UNet call, one K1 launch) at TOL_SLICE_FP32;
+    then one train step at batch 4 with its patch boxes, repeated on the CPU
+    from the card's state with the card's L1 signs replayed, under
+    TRAIN_TOL (the UNet's gradients: pDDPM has no encoder)."""
+    import copy
+
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.train.loop import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(13)
+    slices = torch.rand((4, 96, 96, 1), generator=g)
+    keys = torch.randint(0, 2**32, (2, 2), generator=g, dtype=torch.int64)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        task = _patched_task(dev, dtype="float32")
+        counters = _zero_launches()
+        reco, aux = task.reconstruct_patched_with_aux(slices, keys)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            eval_launches = _read_launches(counters)
+        outs[dev] = (reco.cpu(), aux["loss_per_slice"].cpu())
+    eval_err = {"reco": (outs["cuda"][0] - outs["cpu"][0]).abs().max().item(),
+                "loss_per_slice": (outs["cuda"][1] - outs["cpu"][1]).abs().max().item()}
+
+    b = 4
+    data, vi, si, g = _train_setup(b, "cpu", 14)
+    cpu_task = _patched_task("cpu", dtype="float32")
+    card_task = _patched_task("cuda", dtype="float32")
+    draws = cpu_task.draw_train(g, b)
+    card_opt, cpu_opt = make_optimizer(card_task), make_optimizer(cpu_task)
+    state = {k: v.detach().cpu().clone() for k, v in card_task.state_dict().items()}
+    opt_state = copy.deepcopy(card_opt.state_dict())
+    choices = []
+    counters = _zero_launches()
+    card = _train_one(card_task, card_opt, data, vi, si, draws, choices, replay=False)
+    torch.cuda.synchronize()
+    train_launches = _read_launches(counters)
+    cpu_task.load_state_dict(state)
+    cpu_opt.load_state_dict(opt_state)
+    cpu = _train_one(cpu_task, cpu_opt, data, vi, si, draws, choices, replay=True)
+    spread = _train_spread(card, cpu, card_task.cfg.lr, nets=(("unet", "unet."),))
+    limits = {k: v for k, v in TRAIN_TOL.items() if k != "grad_encoder"}
+    emit({"phase": "patched_correctness",
+          "config": "experiment=cDDPM/DDPM_patched, dtype float32, TF32 off",
+          "eval": {"slices": 4, "volumes": 2, "boxes": 4, "max_abs_err_vs_cpu": eval_err,
+                   "tol": TOL_SLICE_FP32, "launches": eval_launches},
+          "train": {"batch": b, "boxes": draws.box.tolist(), "loss_cuda": card["loss"],
+                    "loss_cpu": cpu["loss"], "choices": cpu["count"],
+                    "card_vs_cpu": spread, "limit": limits, "launches": train_launches}})
+    reco = outs["cuda"][0]
+    require(reco.shape == (4, 96, 96, 1) and bool(torch.isfinite(reco).all()),
+            "pDDPM reconstruction not finite")
+    for k, v in eval_err.items():
+        require(v <= TOL_SLICE_FP32, f"pDDPM card vs CPU {k} err {v}")
+    require(eval_launches["fractal_noise_2d"] == 1 and eval_launches["fused_attention"] == 1,
+            f"pDDPM eval: one chunk should launch K1 and K2 once: {eval_launches}")
+    require(math.isfinite(card["loss"]), "pDDPM train loss not finite")
+    for k, lim in limits.items():
+        require(spread[k] <= lim, f"pDDPM train card vs CPU: {k} {spread[k]} > {lim}")
+    require(train_launches["fractal_noise_2d"] == 1 and train_launches["fused_attention"] >= 1,
+            f"pDDPM train step launches {train_launches}")
+
+
+def phase_patched_full_size():
+    """The DDPM_patched config at full width (bf16): one eval group of 2
+    volumes at EVAL_SHAPE (112 slices x 4 boxes: one UNet call at batch
+    448) through ``VolumeReconstructor(patched=True).batch_call``, then the
+    batch-32 train step with ``use_checkpoint`` on and off: s/step over 10
+    steps after 3 of warm-up, and peak memory. Returns the launches of the
+    eval group and of one train step."""
+    import dataclasses
+
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+    from conditioned_diffusion_models_uad_torch.models.tasks import DDPMTask
+    from conditioned_diffusion_models_uad_torch.orchestrate import eval_key, volume_draws
+    from conditioned_diffusion_models_uad_torch.train.loop import make_optimizer, train_step
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    task = _patched_task("cuda")
+    recon = VolumeReconstructor(task, patched=True)
+    vols = [s["vol"] for s in _eval_subjects(2, 33, True)]
+    draws = volume_draws(task, eval_key(3141, 0), [0, 1])
+    recon.batch_call(vols, draws)  # warm-up: the batch-448 shapes
+    torch.cuda.synchronize()
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    res = recon.batch_call(vols, draws)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    eval_launches = _read_launches(counters)
+    for reco, aux in res:
+        require(reco.shape == EVAL_SHAPE and bool(torch.isfinite(reco).all()),
+                "pDDPM full size: reconstruction not finite")
+        require(math.isfinite(float(aux["loss"])), "pDDPM full size: loss not finite")
+    require(eval_launches["fractal_noise_2d"] == 1 and eval_launches["attention_fwd_mma"] == 1
+            and eval_launches["attention_fwd_scalar"] == 0,
+            f"pDDPM eval group launches {eval_launches}")
+    del task, recon
+
+    b, train = 32, {}
+    for ckpt in (True, False):
+        task = randomize_(DDPMTask(_patched_cfg(use_checkpoint=ckpt), device="cuda"), 0)
+        opt = make_optimizer(task)
+        data, vi, si, g = _train_setup(b, "cuda", 15)
+        for _ in range(3):
+            loss = train_step(task, opt, data, vi, si, task.draw_train(g, b))
+        require(math.isfinite(loss.item()), "pDDPM train loss not finite")
+        reps = 10
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = _zero_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            loss = train_step(task, opt, data, vi, si, task.draw_train(g, b))
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / reps
+        per_step = {k: v / reps for k, v in _read_launches(counters).items()}
+        require(math.isfinite(loss.item()), "pDDPM train loss not finite")
+        train["use_checkpoint" if ckpt else "no_checkpoint"] = {
+            "s_per_step": s_step, "train_slices_per_sec": b / s_step,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": per_step}
+        require(per_step["fractal_noise_2d"] == 1 and per_step["attention_fwd_mma"] >= 1,
+                f"pDDPM train step launches {per_step}")
+        del task, opt, data
+        torch.cuda.empty_cache()
+    emit({"phase": "patched_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "experiment=cDDPM/DDPM_patched (unet 128, mult (1,2,2), 3 res blocks, "
+                    "96x96, 48x48 patches, inpaint, bf16)",
+          "eval_group": {"volumes": 2, "shape": list(EVAL_SHAPE), "boxes": 4,
+                         "unet_batch": 4 * 112, "s_per_group": group_s,
+                         "s_per_volume": group_s / 2,
+                         "slice_denoises_per_sec": 4 * 112 / group_s,
+                         "launches": eval_launches},
+          "train_step": {"batch": b, **train}})
+    return eval_launches, train["use_checkpoint"]["launches_per_step"]
+
+
 FILES_RAW_SHAPE = (196, 198, 104)
+DDIM_RELOAD_STEPS = 5
 FILES_SETS = ("Brats21", "MSLUB")
 # device against host preprocessing of one subject: the transforms'
 # tolerance in tests/test_torch_transforms.py (images), exact for labels
@@ -1507,13 +1843,16 @@ def phase_run_from_files(gen, work: Path):
     SparK pretraining (experiment=cDDPM/Spark_2D_pretrain), then the
     flagship experiment with ``pretrained_encoder=<the SparK run>``. Each
     fits 2 epochs with a validation after each (best and last checkpoints,
-    CSV logs), then evaluates Brats21 and MSLUB val -> test. The launch
-    counters are set to 0 just before each fit and each eval stage and read
-    just after. Then the artifacts, the cDDPM encoder's backbone at its fit's
-    start against the SparK 'best' checkpoint (bit for bit), an eval-only
-    rerun of the cDDPM from its 'last' checkpoint (same counts, IDs and
-    thresholds; float rows within TOL_EVAL_REL), and two subjects
-    preprocessed on the card and on the host."""
+    CSV logs), then evaluates Brats21 and MSLUB val -> test. Then an
+    eval-only rerun of the cDDPM from its 'last' checkpoint, the patched DDPM
+    (experiment=cDDPM/DDPM_patched: fit and eval as above, from the same
+    files) and an eval-only rerun of the cDDPM with model.reco_mode=ddim and
+    DDIM_RELOAD_STEPS steps. The launch counters are set to 0 just before
+    each fit and each eval stage and read just after. Then the artifacts,
+    the cDDPM encoder's backbone at its fit's start against the SparK 'best'
+    checkpoint (bit for bit), the eval-only rerun against the fit's eval
+    (same counts, IDs and thresholds; float rows within TOL_EVAL_REL), and
+    two subjects preprocessed on the card and on the host."""
     import contextlib
     import csv
     import io
@@ -1538,7 +1877,7 @@ def phase_run_from_files(gen, work: Path):
     require(gen.returncode == 0, f"writing the NIfTI data failed: {out[-2000:]}")
     data_dir, logs = work / "data", work / "logs"
 
-    launches = {"fit": None, "stages": {}}
+    launches = {"fit": {}, "stages": {}}
     fit_start = {}
     orig_fit, orig_stage = loop.Trainer.fit, orchestrate.run_stage
 
@@ -1568,7 +1907,12 @@ def phase_run_from_files(gen, work: Path):
             "fit_eval": [cddpm, "name=from_files", *fit2,
                          f"pretrained_encoder={logs / 'spark'}"],
             "reload": [cddpm, "name=reload", "only_eval=true",
-                       f"load_checkpoint={logs / 'from_files'}", "checkpoint=last"]}
+                       f"load_checkpoint={logs / 'from_files'}", "checkpoint=last"],
+            "pddpm": ["experiment=cDDPM/DDPM_patched", "name=pddpm", *fit2],
+            "ddim_reload": [cddpm, "name=ddim_reload", "only_eval=true",
+                            f"load_checkpoint={logs / 'from_files'}", "checkpoint=last",
+                            "model.reco_mode=ddim",
+                            f"model.sampling_steps={DDIM_RELOAD_STEPS}"]}
     wall, printed = {}, io.StringIO()
     loop.Trainer.fit, orchestrate.run_stage = fit, run_stage
     try:
@@ -1580,8 +1924,7 @@ def phase_run_from_files(gen, work: Path):
             torch.cuda.synchronize()
             wall[name] = time.perf_counter() - t0
             launches[name] = launches["stages"]
-            if name == "spark":
-                launches["spark_fit"] = launches["fit"]
+            launches[f"{name}_fit"], launches["fit"] = launches["fit"], {}
     finally:
         loop.Trainer.fit, orchestrate.run_stage = orig_fit, orig_stage
     eval_launches, reload_launches = launches["fit_eval"], launches["reload"]
@@ -1642,12 +1985,30 @@ def phase_run_from_files(gen, work: Path):
     require(not differ, f"eval-only reload differs in {differ}")
     require(worst["rel"] <= TOL_EVAL_REL, f"eval-only reload float rows: {worst}")
 
+    # the pDDPM run and the DDIM rerun from the same files
+    pd_train_loss, pd_val_loss, pd_meta, _, pd_preds, pd_summary, pd_timings = artifacts(
+        logs / "pddpm")
+    ddim_preds = pickle.loads((logs / "ddim_reload" / "0_preds_dict.pkl").read_bytes())
+    ddim_summary = {}
+    for stage in ("val", "test"):
+        for name in FILES_SETS:
+            d = ddim_preds[stage][name]
+            ddim_summary[f"{name}/{stage}"] = {k: d[k] for k in ("DicePerVolMean",
+                                                                 "AUPRCPerVolMean")}
+            require(d["IDs"] == preds[stage][name]["IDs"]
+                    and all(math.isfinite(v) for v in ddim_summary[f"{name}/{stage}"].values())
+                    and all(math.isnan(v) for v in d["AnomalyScoreRegPerVol"]),
+                    f"DDIM rerun {name}/{stage}: {ddim_summary[f'{name}/{stage}']}")
+
     # the kernels on each path: none on SparK's
     for where, got in ([("SparK fit", launches["spark_fit"])]
                        + [(f"SparK eval {k}", v) for k, v in launches["spark"].items()]):
         require(all(v == 0 for v in got.values()), f"run from files, {where}: {got}")
-    fit_l = launches["fit"]
-    for where, got in [("fit", fit_l)] + [(f"eval {k}", v) for k, v in eval_launches.items()]:
+    fit_l = launches["fit_eval_fit"]
+    for where, got in ([("fit", fit_l), ("pDDPM fit", launches["pddpm_fit"])]
+                       + [(f"eval {k}", v) for k, v in eval_launches.items()]
+                       + [(f"pDDPM eval {k}", v) for k, v in launches["pddpm"].items()]
+                       + [(f"DDIM eval {k}", v) for k, v in launches["ddim_reload"].items()]):
         require(got["fractal_noise_2d"] >= 1 and got["attention_fwd_mma"] >= 1,
                 f"run from files, {where}: K1/K2 not launched: {got}")
         require(got["attention_fwd_scalar"] == 0,
@@ -1722,9 +2083,34 @@ def phase_run_from_files(gen, work: Path):
           "preprocess_subjects_per_sec": {k: len(rows2) / v for k, v in secs.items()},
           "preprocess_max_abs_err": preproc_err, "tol_preprocess": TOL_PREPROC,
           "launches_fit": fit_l, "launches_eval": eval_launches,
-          "launches_reload_eval": reload_launches})
+          "launches_reload_eval": reload_launches,
+          "pddpm_stage": {"config": "experiment=cDDPM/DDPM_patched (full width, bf16, "
+                                    "use_checkpoint), trainer.max_epochs=2",
+                          "cli_wall_s": wall["pddpm"], "ingest_s": pd_timings["ingest_s"],
+                          "s_per_step": sum(pd_timings["fit"]["epoch_s"])
+                          / pd_timings["fit"]["steps"],
+                          "train_loss": pd_train_loss, "val_loss": pd_val_loss,
+                          "meta": pd_meta, "eval_s": sum(
+                              v["total"] + v["test_end"] for v in pd_timings["eval"].values()),
+                          "eval_stages": pd_timings["eval"], "metrics": pd_summary,
+                          "launches_fit": launches["pddpm_fit"],
+                          "launches_eval": launches["pddpm"]},
+          "ddim_reload_stage": {"config": "the cDDPM's 'last' checkpoint, only_eval, "
+                                          f"model.reco_mode=ddim, sampling_steps="
+                                          f"{DDIM_RELOAD_STEPS}",
+                                "cli_wall_s": wall["ddim_reload"], "metrics": ddim_summary,
+                                "launches_eval": launches["ddim_reload"]}})
+    pd_epochs = len(pd_timings["fit"]["epoch_s"])
+
+    def total(stages):
+        return {k: sum(v[k] for v in stages.values()) for k in fit_l}
+
     return {"fit_epoch": {k: v / epochs for k, v in fit_l.items()},
+            "pddpm_fit_epoch": {k: v / pd_epochs for k, v in launches["pddpm_fit"].items()},
+            "pddpm_eval_from_files": total(launches["pddpm"]),
+            "ddim_eval_from_files": total(launches["ddim_reload"]),
             "eval_from_files": eval_total,
+            "added_cli_s": wall["pddpm"] + wall["ddim_reload"],
             "spark_fit_epoch": {k: v / epochs for k, v in launches["spark_fit"].items()},
             "spark_eval_from_files": {k: sum(v[k] for v in launches["spark"].values())
                                       for k in fit_l}}
@@ -1746,6 +2132,8 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port: {_IMPORT_ERROR}", file=sys.stderr)
         return 2
 
+    LOG.parent.mkdir(exist_ok=True)
+    LOG.write_text("")
     work = Path(tempfile.mkdtemp(prefix="uad_from_files_"))
     gen = start_file_data(work)
     try:
@@ -1777,10 +2165,20 @@ def run_phases(gen, work: Path) -> int:
     phase_spark_correctness()
     with paused(gen):
         spark_launches = phase_spark_train_full_size()
+    t_new = time.perf_counter()
+    phase_iterative_correctness()
+    with paused(gen):
+        iter_launches = phase_iterative_full_size()
+    phase_patched_correctness()
+    with paused(gen):
+        pd_eval_launches, pd_train_launches = phase_patched_full_size()
+    new_phases_s = time.perf_counter() - t_new
     files = phase_run_from_files(gen, work)
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
-    k2_mma["at_train_shape"] = {key: k2["mma_train"][key] for key in (
-        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for at, key_ in (("at_train_shape", "mma_train"), ("at_pddpm_eval_shape", "mma_pddpm"),
+                     ("at_iterative_step_shape", "mma_iterative")):
+        k2_mma[at] = {key: k2[key_][key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     k2_scalar["at_flagship_bf16"] = {key: k2["scalar_bf16"][key] for key in (
         "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
     k1["launches"] = launches["fractal_noise_2d"]
@@ -1799,11 +2197,20 @@ def run_phases(gen, work: Path) -> int:
                                    "eval_from_files": files["eval_from_files"][name],
                                    "spark_train_step": spark_launches[name],
                                    "spark_fit_epoch": files["spark_fit_epoch"][name],
-                                   "spark_eval_from_files": files["spark_eval_from_files"][name]}
+                                   "spark_eval_from_files": files["spark_eval_from_files"][name],
+                                   "ddim_reconstruct_call": iter_launches["ddim"][name],
+                                   "ancestral_reconstruct_call": iter_launches["ancestral"][name],
+                                   "pddpm_eval_group": pd_eval_launches[name],
+                                   "pddpm_train_step": pd_train_launches[name],
+                                   "pddpm_fit_epoch": files["pddpm_fit_epoch"][name],
+                                   "pddpm_eval_from_files": files["pddpm_eval_from_files"][name],
+                                   "ddim_eval_from_files": files["ddim_eval_from_files"][name]}
     for rec in (k3_cluster, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
         "attention_fwd_scalar"]
+    emit({"phase": "timing", "iterative_and_patched_phases_s": new_phases_s,
+          "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"]})
     emit({"kernels": [k1, k2_mma, k2_scalar, k3_cluster, k3_two_pass]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,9 @@ The composed dict is materialized into the typed configs consumed by each
 subsystem: DDPMTaskConfig or, with ``task=Spark_2D``, SparkTaskConfig
 (models), DataConfig (data), TrainerConfig (train), EvalConfig (eval). The
 port's RunConfig adds one field, ``device`` (default ``cuda``; ``device=cpu``
-asks for the CPU). Not ported: the DDPMTaskConfig fields of the patched and
-DDIM variants away from their defaults (they raise NotImplementedError).
+asks for the CPU). Every experiment of ``configs/experiment/cDDPM`` and the
+``model.reco_mode`` / ``model.sampling_steps`` / ``model.use_checkpoint``
+overrides materialize as in the JAX package.
 """
 from __future__ import annotations
 

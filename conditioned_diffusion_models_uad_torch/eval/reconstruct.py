@@ -10,10 +10,12 @@ device by ``fused.group_eval_core``; its packed buffer is the group's one
 host fetch.
 
 Where the JAX reconstructor takes keys ([2], or [G, 2] of fold_in(key, i)),
-this one takes the draws its task's ``reconstruct_with_aux`` takes, one row
-a volume, or a ``torch.Generator`` to draw them from (``task.draw_seeds``):
-simplex seeds [G, E] for the cDDPM, the JAX-package keys [G, 2] of
-fold_in(key, i) for SparK. One card: no mesh.
+this one takes the draws its task's reconstruction takes, one row a volume,
+or a ``torch.Generator`` to draw them from (``task.draw_seeds``): simplex
+seeds [G, E] for the cDDPM's single-shot reconstruction on the hash noise
+path, the JAX-package keys [G, 2] of fold_in(key, i) for its iterative and
+patched (``patched=True``: ``reconstruct_patched_with_aux``) ones, for table
+noise and for SparK. One card: no mesh.
 """
 from __future__ import annotations
 
@@ -46,12 +48,13 @@ class VolumeReconstructor:
 
     def __init__(self, task, depth_bucket: int = 8, num_eval_slices: Optional[int] = None,
                  patched: bool = False, device: DeviceLike = None):
-        if patched:
-            raise NotImplementedError("the patched (pDDPM) reconstruction is not ported yet")
         self.device = resolve_device(device)
         if task.device.type != self.device.type:
             raise ValueError(f"task is on {task.device}, reconstructor on {self.device}")
         self.task = task
+        self.patched = patched
+        self._reconstruct = (task.reconstruct_patched_with_aux if patched
+                             else task.reconstruct_with_aux)
         self.num_eval_slices = num_eval_slices
         self.depth_multiple = max(int(depth_bucket), 1)
 
@@ -78,6 +81,8 @@ class VolumeReconstructor:
         if seeds is None:
             if generator is None:
                 raise ValueError("pass seeds (one row a volume) or a torch.Generator")
+            if self.patched:
+                return self.task.draw_seeds(generator, groups, keys=True)
             return self.task.draw_seeds(generator, groups)
         seeds = torch.as_tensor(seeds)
         if seeds.dim() != 2 or seeds.shape[0] != groups:
@@ -93,7 +98,7 @@ class VolumeReconstructor:
         slices left out, reference DDPM_2D.py:251-278)."""
         slices, d = self._prep(vol_hwd)
         slices, _ = pad_to_multiple(slices, self.depth_multiple, axis=0)
-        reco, aux = self.task.reconstruct_with_aux(slices, self._seeds(seeds, generator, 1))
+        reco, aux = self._reconstruct(slices, self._seeds(seeds, generator, 1))
         reco_hwd = reco[:d, ..., 0].movedim(0, -1)
         if not return_aux:
             return reco_hwd
@@ -114,7 +119,7 @@ class VolumeReconstructor:
         alone. Returns [(reco_hwd, {'loss', 'latent'})] in input order."""
         slices, pad, depths = self._stack(vols)
         g = len(depths)
-        reco, aux = self.task.reconstruct_with_aux(slices, self._seeds(seeds, generator, g))
+        reco, aux = self._reconstruct(slices, self._seeds(seeds, generator, g))
         out = []
         for i, d in enumerate(depths):
             sl = slice(i * pad, (i + 1) * pad)
@@ -122,8 +127,9 @@ class VolumeReconstructor:
         return out
 
     def latent_len(self) -> int:
-        """Width of the conditioning latent in the packed buffer."""
-        return self.task.latent_len
+        """Width of the conditioning latent in the packed buffer (the
+        patched reconstruction's zeros column is 1 wide)."""
+        return 1 if self.patched else self.task.latent_len
 
     def batch_call_scored(self, subs, flags: dict, seeds=None, *,
                           generator: Optional[torch.Generator] = None):
@@ -135,7 +141,7 @@ class VolumeReconstructor:
         slices, pad, depths = self._stack([s["vol"] for s in subs])
         g = len(subs)
         d = depths[0]
-        reco, aux = self.task.reconstruct_with_aux(slices, self._seeds(seeds, generator, g))
+        reco, aux = self._reconstruct(slices, self._seeds(seeds, generator, g))
         h, w = reco.shape[1], reco.shape[2]
         reco_g = reco[..., 0].reshape(g, pad, h, w)[:, :d].movedim(1, -1)  # [G, H, W, d]
         loss_g = aux["loss_per_slice"].reshape(g, pad)[:, :d].mean(dim=1)

@@ -1,18 +1,26 @@
 """The tasks (counterpart of ``conditioned_diffusion_models_uad_tpu/models/
-tasks.py``): the cDDPM (conditioning encoder + UNet + schedule, with the
-single-shot volume reconstruction the eval (and serving) path runs and the
-training objective), SparK pretraining of its encoder, and the import of
-the pretrained encoder into the cDDPM.
+tasks.py``): the cDDPM (conditioning encoder + UNet + schedule) with its
+single-shot and iterative (ancestral / DDIM) volume reconstructions and its
+training objective, the patched DDPM (pDDPM: ``patched=True``, the
+unconditional UNet noised and reconstructed a patch at a time) and the
+unconditional DDPM (``condition=False``), SparK pretraining of the encoder,
+and the import of the pretrained encoder into the cDDPM.
 
 Where the JAX task takes a PRNG key ([2], or [G, 2] for G grouped volumes),
-this one takes explicit draws: for a reconstruction, simplex seeds ``[G, E]``
-(int32, one per volume and noise draw) or a ``torch.Generator`` from which it
-draws them, uniform in [0, 2**31 - 1) like ``randint(key, (), 0, int32max)``
-in the JAX package; for a training step, a ``TrainDraws``. SparK takes per-volume JAX-package keys
-[G, 2] for a reconstruction (its eval masks, bit-equal to that package's)
-and a ``SparkDraws`` for a training step.
-Not ported yet: the iterative samplers (``reco_mode`` 'ancestral'/'ddim'),
-UNet dropout in training, and the patched (pDDPM) variant.
+this one takes explicit draws, one row a volume, or a ``torch.Generator``
+from which it draws them (``draw_seeds``):
+* simplex seeds ``[G, E]`` (int32, one per volume and noise draw, uniform in
+  [0, 2**31 - 1) like ``randint(key, (), 0, int32max)`` in the JAX package)
+  for the single-shot reconstruction on the hash noise path;
+* the JAX package's keys ``[G, 2]`` (int64 holding the uint32 words) for
+  the iterative and patched reconstructions, and for every mode under
+  ``noise_impl='table'``: the task splits each volume's key chain on the host
+  as the JAX task does (``utils/prng.py``), and on the hash path turns each
+  key into its seed with ``randint``;
+* a ``TrainDraws`` for a training step.
+SparK takes per-volume keys [G, 2] for a reconstruction (its eval masks,
+bit-equal to that package's) and a ``SparkDraws`` for a training step.
+Not ported yet: UNet dropout in training.
 """
 from __future__ import annotations
 
@@ -24,8 +32,18 @@ import torch
 from torch import nn
 
 from ..data.augment import AugDraws, draw_aug_intensity
-from ..diffusion import GaussianDiffusionConfig, diffusion_call, make_schedule
+from ..diffusion import (
+    GaussianDiffusionConfig,
+    box_to_mask,
+    ddim_sample,
+    diffusion_call,
+    make_schedule,
+    normalize_to_neg_one_to_one,
+    p_sample_loop,
+)
+from ..ops.patch_sampling import grid_boxes, grid_boxes_cut, paste_patches, sample_single_box
 from ..ops.simplex import make_noise_fn
+from ..utils import prng
 from ..utils.device import DeviceLike, resolve_device
 from .losses import l1_ae_loss, l1_error
 from .resnet import ResNetConfig, ResNetEncoder
@@ -41,18 +59,23 @@ from .spark import (
 from .unet import UNetConfig, UNetModel
 
 INT32_MAX = 2**31 - 1
+RECO_MODES = ("single_shot", "ancestral", "ddim")
 
-# fields of the JAX package's config that the port accepts at their defaults
-# only: the DDIM sampler, the patched (pDDPM) variant and ResBlock recompute
-_NOT_PORTED = {"sampling_steps": 50, "patched": False, "patch_hw": (48, 48),
-               "grid_boxes_eval": "equalized", "patch_aggregation": "avg",
-               "inpaint": False, "use_checkpoint": False}
+
+def key_stack(keys) -> np.ndarray:
+    """Per-volume keys [G, 2] (uint32 words, or int64 holding them; a
+    tensor or an array) as uint32."""
+    keys = prng.key_words(keys)
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be [G, 2], got {keys.shape}")
+    return keys
 
 
 @dataclasses.dataclass(frozen=True)
 class DDPMTaskConfig:
     """The cDDPM knobs this port reads (same names and defaults as the JAX
-    package's ``DDPMTaskConfig``; experiment cDDPM/DDPM_cond_spark_2D)."""
+    package's ``DDPMTaskConfig``; experiments cDDPM/DDPM_cond_spark_2D,
+    cDDPM/DDPM and cDDPM/DDPM_patched)."""
 
     image_hw: Tuple[int, int] = (96, 96)
     condition: bool = True
@@ -72,13 +95,15 @@ class DDPMTaskConfig:
     noise_ensemble: bool = True
     step_ensemble: Sequence[int] = (250, 500, 750)
     num_eval_slices: Optional[int] = None  # centre depth crop at eval
+    # 'single_shot' (one forward at fixed t) | 'ancestral' | 'ddim'
+    # (truncated reverse sampling from t = test_timesteps)
     reco_mode: str = "single_shot"
     sampling_steps: int = 50  # DDIM steps of reco_mode 'ddim'
     # patched (pDDPM) variant, off for the cDDPM
     patched: bool = False
     patch_hw: Tuple[int, int] = (48, 48)
-    grid_boxes_eval: str = "equalized"
-    patch_aggregation: str = "avg"
+    grid_boxes_eval: str = "equalized"  # 'equalized' | 'cut'
+    patch_aggregation: str = "avg"  # 'avg' | 'cut'
     inpaint: bool = False
     unet_dim: int = 128
     num_res_blocks: int = 3
@@ -102,13 +127,12 @@ class DDPMTaskConfig:
                 "(step_ensemble / test_timesteps index the noise schedule "
                 "1-based as t-1)"
             )
-        if self.reco_mode != "single_shot":
-            raise NotImplementedError(f"reco_mode={self.reco_mode!r} is not ported yet")
-        for name, default in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"DDPMTaskConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {default!r})")
+        for name, allowed in (("reco_mode", RECO_MODES),
+                              ("grid_boxes_eval", ("equalized", "cut")),
+                              ("patch_aggregation", ("avg", "cut"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"DDPMTaskConfig.{name}={getattr(self, name)!r} "
+                                 f"is not one of {allowed}")
 
     @property
     def unet_config(self) -> UNetConfig:
@@ -121,6 +145,7 @@ class DDPMTaskConfig:
             channel_mult=tuple(self.channel_mult),
             cond_dim=self.cond_dim if self.condition else None,
             spatial_transformer=self.spatial_transformer,
+            use_checkpoint=self.use_checkpoint,
             fused_attention=self.fused_attention,
             norm_precision=self.norm_precision,
             film_fold=self.film_fold,
@@ -138,21 +163,28 @@ class DDPMTaskConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainDraws:
-    """The random draws of one training step: t [B] in [0, timesteps), one
-    simplex seed [1] int32 (one noise field per step, broadcast over the
-    batch) and the augmentation draws (None: no augmentation)."""
+    """The random draws of one training step: t [B] in [0, timesteps), the
+    noise draw (one field a step, broadcast over the batch): a simplex seed
+    [1] int32 on the hash path, a key [1, 2] (int64 words) under
+    ``noise_impl='table'``; the augmentation draws (None: no augmentation);
+    and for the pDDPM the patch boxes [B, 4] int32 (x0, y0, x1, y1)."""
 
     t: torch.Tensor
     seed: torch.Tensor
     aug: Optional[AugDraws] = None
+    box: Optional[torch.Tensor] = None
 
 
 class DDPMTask(nn.Module):
-    """The conditioned-DDPM anomaly-detection task.
+    """The conditioned-DDPM anomaly-detection task, and its patched and
+    unconditional variants.
 
     ``DDPMTask(cfg)`` runs on ``cuda``; ``device="cpu"`` runs on the CPU.
-    Weights start as in the JAX package's ``init`` layout (zero output convs,
-    BN stats mean 0 / var 1); load trained ones with ``load_state_dict`` (see
+    ``noise_impl`` picks the simplex path (``ops/simplex.py::make_noise_fn``):
+    'hash' (kernel K1 on the card) or 'table' (the JAX package's CPU path,
+    for tests against that package's numbers). Weights start as in the JAX
+    package's ``init`` layout (zero output convs, BN stats mean 0 / var 1);
+    load trained ones with ``load_state_dict`` (see
     ``utils/convert_jax.py``). The module stays in eval mode; ``encode`` and
     ``loss`` put the encoder's BatchNorm in the mode their ``train`` argument
     asks for during the call and restore the previous mode after it, as the
@@ -161,10 +193,11 @@ class DDPMTask(nn.Module):
     training is not ported)."""
 
     def __init__(self, cfg: DDPMTaskConfig = DDPMTaskConfig(),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, noise_impl: str = "hash"):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.noise_impl = noise_impl
         self.unet = UNetModel(cfg.unet_config)
         self.encoder = (
             ResNetEncoder(
@@ -179,9 +212,10 @@ class DDPMTask(nn.Module):
         self.eval()
         self.sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.p2_gamma,
                                    cfg.p2_k, device=self.device)
-        self.gd_cfg = GaussianDiffusionConfig(cfg.objective, cfg.loss_type)
+        self.gd_cfg = GaussianDiffusionConfig(cfg.objective, cfg.loss_type, inpaint=cfg.inpaint)
         self.noise_fn = make_noise_fn(cfg.noisetype, cfg.simplex_octaves,
-                                      cfg.simplex_persistence, cfg.simplex_frequency)
+                                      cfg.simplex_persistence, cfg.simplex_frequency,
+                                      impl=noise_impl)
 
     def encode(self, x01: torch.Tensor, *, train: bool = False) -> Optional[torch.Tensor]:
         """Clean slices [B, H, W, 1] -> conditioning vector [B, cond_dim] f32
@@ -198,11 +232,39 @@ class DDPMTask(nn.Module):
 
     @property
     def latent_len(self) -> int:
-        """Width of ``reconstruct_with_aux``'s 'latent_per_slice'."""
+        """Width of ``reconstruct_with_aux``'s 'latent_per_slice' (the
+        patched reconstruction's is 1)."""
         return self.cfg.cond_dim if self.cfg.condition else 1
 
-    def draw_seeds(self, generator: torch.Generator, groups: int = 1) -> torch.Tensor:
-        """Simplex seeds [groups, E] uniform in [0, 2**31 - 1)."""
+    @property
+    def draws_keys(self) -> bool:
+        """Whether a reconstruction takes keys [G, 2] (iterative, patched or
+        table noise) rather than seeds [G, E]."""
+        return (self.noise_impl == "table" or self.cfg.patched
+                or self.cfg.reco_mode != "single_shot")
+
+    def key_noise(self, keys, shape) -> torch.Tensor:
+        """Noise [N*B, H, W, C] from keys [N, 2] (uint32 words), block n from
+        key n over ``shape``'s B samples: the table path on the keys
+        themselves, the hash path on their seeds ``randint(key, (), 0,
+        2**31 - 1)`` (all N fields from one kernel launch on the card), as
+        the JAX package's Pallas path turns a key into its seed."""
+        keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+        if self.noise_impl == "table":
+            draws = torch.from_numpy(keys.astype(np.int64))
+        else:
+            draws = torch.from_numpy(prng.randint(keys))
+        return self.noise_fn(draws.to(self.device), tuple(shape))
+
+    def draw_seeds(self, generator: torch.Generator, groups: int = 1,
+                   keys: Optional[bool] = None) -> torch.Tensor:
+        """A reconstruction's draws for ``groups`` volumes: keys [groups, 2]
+        uniform in [0, 2**32) (int64) when ``keys`` (default:
+        ``draws_keys``), else simplex seeds [groups, E] uniform in
+        [0, 2**31 - 1)."""
+        if self.draws_keys if keys is None else keys:
+            return torch.randint(0, 2**32, (groups, 2), generator=generator,
+                                 dtype=torch.int64, device=generator.device)
         return torch.randint(0, INT32_MAX, (groups, self.cfg.ensemble_size),
                              generator=generator, dtype=torch.int32,
                              device=generator.device)
@@ -210,36 +272,74 @@ class DDPMTask(nn.Module):
     def draw_train(self, generator: torch.Generator, b: int, *,
                    augment: bool = True) -> TrainDraws:
         """One training step's draws for a batch of ``b``, on the generator's
-        device: t uniform in [0, timesteps), one seed uniform in
-        [0, 2**31 - 1), and the aug_intensity draws when ``augment``."""
+        device: the noise draw (a seed uniform in [0, 2**31 - 1), or a key
+        under table noise), t uniform in [0, timesteps), the aug_intensity
+        draws when ``augment``, and for the pDDPM one patch box a sample."""
         dev = generator.device
-        seed = torch.randint(0, INT32_MAX, (1,), generator=generator, dtype=torch.int32,
-                             device=dev)
+        if self.noise_impl == "table":
+            seed = torch.randint(0, 2**32, (1, 2), generator=generator, dtype=torch.int64,
+                                 device=dev)
+        else:
+            seed = torch.randint(0, INT32_MAX, (1,), generator=generator, dtype=torch.int32,
+                                 device=dev)
         t = torch.randint(0, self.cfg.timesteps, (b,), generator=generator, device=dev)
         aug = draw_aug_intensity(generator, b) if augment else None
-        return TrainDraws(t, seed, aug)
+        box = (sample_single_box(generator, b, self.cfg.image_hw, self.cfg.patch_hw)
+               if self.cfg.patched else None)
+        return TrainDraws(t, seed, aug, box)
+
+    def _train_noise(self, draw: torch.Tensor, shape) -> torch.Tensor:
+        if self.noise_impl == "table":
+            return self.noise_fn(draw.reshape(1, 2).to(self.device), shape)
+        return self.noise_fn(draw.reshape(1).to(device=self.device, dtype=torch.int32), shape)
 
     def loss(self, batch: dict, draws: TrainDraws, *, train: bool = True):
         """The training (``train=True``) or validation objective on a batch
-        ``{'vol': [B, H, W, 1] in [0, 1]}`` at the draws' t and noise seed.
-        Returns (scalar loss, {'reco': [B, H, W, 1]}). Training normalises
-        the encoder with batch statistics and updates its running ones;
-        validation uses the running ones. Gradients flow to every parameter;
-        augmentation is the caller's (``train/loop.py``)."""
+        ``{'vol': [B, H, W, 1] in [0, 1]}`` at the draws' t and noise (and,
+        for the pDDPM, with only the draws' boxes noised). Returns (scalar
+        loss, {'reco': [B, H, W, 1]}). Training normalises the encoder with
+        batch statistics and updates its running ones; validation uses the
+        running ones. Gradients flow to every parameter; augmentation is the
+        caller's (``train/loop.py``)."""
         cfg = self.cfg
         if train and cfg.dropout_unet > 0:
             raise NotImplementedError("UNet dropout in training is not ported yet")
         x01 = batch["vol"].to(self.device).float()
         cond = self.encode(x01, train=train)
-        seed = draws.seed.reshape(1).to(device=self.device, dtype=torch.int32)
-        noise = self.noise_fn(seed, tuple(x01.shape))
+        noise = self._train_noise(draws.seed, tuple(x01.shape))
+        box_mask = None
+        if cfg.patched:
+            if draws.box is None:
+                raise ValueError("the patched task's draws need boxes (TrainDraws.box)")
+            box_mask = box_to_mask(draws.box.to(self.device), *cfg.image_hw)
         loss, reco = diffusion_call(self.sched, self.gd_cfg, self.unet, x01,
-                                    t=draws.t.to(self.device), cond=cond, noise=noise)
+                                    t=draws.t.to(self.device), cond=cond, noise=noise,
+                                    box_mask=box_mask)
         return loss, {"reco": reco}
+
+    def _eval_draws(self, draws, generator, groups, depth, keys: bool = False):
+        """The reconstruction's draws, one row a volume: keys [G, 2] (uint32,
+        on the host) when ``keys`` or ``draws_keys``, else seeds [G, E] on
+        the device."""
+        keys = keys or self.draws_keys
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass the draws (one row a volume) or a torch.Generator")
+            draws = self.draw_seeds(generator, groups, keys)
+        if keys:
+            draws = key_stack(draws)
+        else:
+            e = self.cfg.ensemble_size
+            if draws.dim() != 2 or draws.shape[1] != e:
+                raise ValueError(f"seeds must be [G, {e}], got {tuple(draws.shape)}")
+            draws = draws.to(device=self.device, dtype=torch.int32)
+        if depth % draws.shape[0]:
+            raise ValueError(f"depth {depth} does not split into {draws.shape[0]} volumes")
+        return draws
 
     @torch.no_grad()
     def reconstruct(self, slices01, seeds=None, *, generator=None, groups: int = 1):
-        """Single-shot reconstruction [D, H, W, 1] in [0, 1] (see
+        """The reconstruction [D, H, W, 1] in [0, 1] (see
         ``reconstruct_with_aux``)."""
         return self.reconstruct_with_aux(slices01, seeds, generator=generator,
                                          groups=groups)[0]
@@ -248,44 +348,60 @@ class DDPMTask(nn.Module):
     def reconstruct_with_aux(
         self,
         slices01: torch.Tensor,  # [D, H, W, 1]: G same-depth volumes stacked
-        seeds: Optional[torch.Tensor] = None,  # [G, E] int32
+        seeds: Optional[torch.Tensor] = None,  # [G, E] int32 or keys [G, 2]
         *,
         generator: Optional[torch.Generator] = None,
         groups: int = 1,
     ):
-        """Single-shot reconstruction of a slice stack at fixed t, with the
-        noise ensemble over t in step_ensemble averaged. Returns (reco, aux):
-        reco [D, H, W, 1] in [0, 1]; aux 'loss_per_slice' [D] (the LAST
-        ensemble member's diffusion loss) and 'latent_per_slice' [D, cond_dim]
-        (the conditioning vector; a zeros column when unconditional).
+        """Reconstruction of a slice stack of G same-depth volumes. Returns
+        (reco, aux): reco [D, H, W, 1] in [0, 1]; aux 'loss_per_slice' [D]
+        and 'latent_per_slice' [D, cond_dim] (the conditioning vector; a
+        zeros column when unconditional).
 
-        The ensemble is flattened into the batch (one UNet call at batch
-        E*D). Noise is member-major over the G volumes: block (m, v) is volume
-        v's m-th field ``seeds[v, m]``, broadcast over its D//G slices — so a
-        volume reconstructs the same whichever group it rides in. All E*G
-        fields come from one noise-kernel launch."""
+        Single-shot: at fixed t, with the noise ensemble over t in
+        step_ensemble flattened into the batch (one UNet call at batch E*D)
+        and averaged; the loss is the LAST member's. Noise is member-major
+        over the G volumes: block (m, v) is volume v's m-th field (seed
+        ``seeds[v, m]``, or key ``split(keys[v], E)[m]``), broadcast over its
+        D // G slices, so a volume reconstructs the same whichever group it
+        rides in. All E*G fields come from one noise-kernel launch.
+
+        Iterative (``reco_mode`` 'ancestral' or 'ddim'): the stack noised to
+        test_timesteps from each volume's key, then the ancestral chain (or
+        ``sampling_steps`` DDIM steps) back to x0, one UNet call and one
+        noise launch a step. No single diffusion loss exists on a chain:
+        'loss_per_slice' is NaN."""
         cfg = self.cfg
-        if seeds is None:
-            if generator is None:
-                raise ValueError("pass seeds [G, E] or a torch.Generator")
-            seeds = self.draw_seeds(generator, groups)
-        e = cfg.ensemble_size
-        if seeds.dim() != 2 or seeds.shape[1] != e:
-            raise ValueError(f"seeds must be [G, {e}], got {tuple(seeds.shape)}")
-        seeds = seeds.to(device=self.device, dtype=torch.int32)
         slices01 = slices01.to(self.device)
         d, h, w, c = slices01.shape
-        g = seeds.shape[0]
-        if d % g:
-            raise ValueError(f"depth {d} does not split into {g} volumes")
-
+        draws = self._eval_draws(seeds, generator, groups, d)
+        g = draws.shape[0]
         cond = self.encode(slices01)
         latent = (cond.float() if cond is not None
                   else torch.zeros((d, 1), dtype=torch.float32, device=self.device))
         sub = (d // g, h, w, c)
 
-        if cfg.noise_ensemble and len(cfg.step_ensemble) > 0:
-            noises = self.noise_fn(seeds.t().reshape(-1), sub)  # [E*D, H, W, C]
+        if cfg.reco_mode != "single_shot":
+            aux = {"loss_per_slice": torch.full((d,), float("nan"), device=self.device),
+                   "latent_per_slice": latent}
+            x_start = normalize_to_neg_one_to_one(slices01.float())
+            kw = dict(key=draws, noise_fn=self.key_noise, cond=cond,
+                      start_t=cfg.test_timesteps, x_start=x_start)
+            if cfg.reco_mode == "ddim":
+                return ddim_sample(self.sched, self.gd_cfg, self.unet, tuple(slices01.shape),
+                                   sampling_timesteps=cfg.sampling_steps, **kw), aux
+            return p_sample_loop(self.sched, self.gd_cfg, self.unet, tuple(slices01.shape),
+                                 **kw), aux
+
+        e = cfg.ensemble_size
+        ensemble = cfg.noise_ensemble and len(cfg.step_ensemble) > 0
+        if not self.draws_keys:
+            noises = self.noise_fn(draws.t().reshape(-1), sub)  # [E*D, H, W, C]
+        elif ensemble:
+            noises = self.key_noise(prng.split_keys(draws, e).reshape(-1, 2), sub)
+        else:  # one field a volume straight from its key
+            noises = self.key_noise(draws, sub)
+        if ensemble:
             t_vec = torch.tensor([t - 1 for t in cfg.step_ensemble],
                                  device=self.device).repeat_interleave(d)
             imgs = slices01.repeat(e, 1, 1, 1)
@@ -298,12 +414,83 @@ class DDPMTask(nn.Module):
                    "latent_per_slice": latent}
             return reco.reshape(e, d, h, w, -1).mean(dim=0), aux
 
-        noise = self.noise_fn(seeds[:, 0].contiguous(), sub)
         loss_ps, reco = diffusion_call(
             self.sched, self.gd_cfg, self.unet, slices01,
-            t=cfg.test_timesteps - 1, cond=cond, noise=noise, reduce=False,
+            t=cfg.test_timesteps - 1, cond=cond, noise=noises, reduce=False,
         )
         return reco, {"loss_per_slice": loss_ps, "latent_per_slice": latent}
+
+    def eval_boxes(self) -> np.ndarray:
+        """The pDDPM eval grid [N, 4] (``grid_boxes_eval``)."""
+        cfg = self.cfg
+        if cfg.grid_boxes_eval == "cut":
+            return grid_boxes_cut(cfg.image_hw, cfg.patch_hw)
+        return grid_boxes(cfg.image_hw, cfg.patch_hw, equalize_overlap=True)
+
+    @torch.no_grad()
+    def reconstruct_patched(self, slices01, keys=None, *, generator=None, groups: int = 1):
+        """The pDDPM reconstruction [D, H, W, 1] (see
+        ``reconstruct_patched_with_aux``)."""
+        return self.reconstruct_patched_with_aux(slices01, keys, generator=generator,
+                                                 groups=groups)[0]
+
+    @torch.no_grad()
+    def reconstruct_patched_with_aux(self, slices01: torch.Tensor, keys=None, *,
+                                     generator: Optional[torch.Generator] = None,
+                                     groups: int = 1):
+        """pDDPM eval (reference DDPM_2D_patched.py:173-216): each box of the
+        static grid is noised at test_timesteps with the rest of the image
+        clean and denoised, and the box reconstructions are pasted together
+        (``patch_aggregation``). The boxes run in chunks flattened into the
+        batch, the chunk being the largest divisor of the grid size with at
+        most 512 // D boxes, so a chunk is one UNet call and one noise launch.
+        Box b of volume v draws its noise from ``split(keys[v], N)[b]``.
+        aux: 'loss_per_slice' is the LAST box's diffusion loss (the
+        reference's box loop overwrites it) and 'latent_per_slice' a zeros
+        column [D, 1]."""
+        cfg = self.cfg
+        slices01 = slices01.to(self.device)
+        d, h, w, c = slices01.shape
+        keys = self._eval_draws(keys, generator, groups, d, keys=True)
+        g = keys.shape[0]
+        boxes = self.eval_boxes()
+        n = boxes.shape[0]
+        max_chunk = max(1, 512 // max(d, 1))
+        chunk = next((k for k in range(min(n, max_chunk), 0, -1) if n % k == 0), 1)
+        cond = self.encode(slices01)
+        box_keys = prng.split_keys(keys, n)  # [n, G, 2]
+        masks = box_to_mask(torch.from_numpy(boxes).to(self.device), h, w)
+        sub = (d // g, h, w, c)
+        recos = []
+        for b0 in range(0, n, chunk):
+            noise = self.key_noise(box_keys[b0:b0 + chunk].reshape(-1, 2), sub)
+            loss_ps, reco = diffusion_call(
+                self.sched, self.gd_cfg, self.unet, slices01.repeat(chunk, 1, 1, 1),
+                t=cfg.test_timesteps - 1,
+                cond=None if cond is None else cond.repeat(chunk, 1), noise=noise,
+                box_mask=masks[b0:b0 + chunk].repeat_interleave(d, dim=0), reduce=False,
+            )
+            recos.append(reco.reshape(chunk, d, h, w, -1))
+        aux = {"loss_per_slice": loss_ps.reshape(chunk, d)[-1],
+               "latent_per_slice": torch.zeros((d, 1), dtype=torch.float32, device=self.device)}
+        return paste_patches(torch.cat(recos), slices01, boxes, cfg.patch_aggregation), aux
+
+    @torch.no_grad()
+    def sample(self, shape: tuple, keys, *, cond: Optional[torch.Tensor] = None,
+               x_start01: Optional[torch.Tensor] = None, start_t: int = 0,
+               use_ddim: bool = False, sampling_timesteps: Optional[int] = None):
+        """Full or truncated reverse sampling (ancestral, or DDIM with
+        ``sampling_timesteps`` steps, 50 by default) of ``shape`` [B, H, W,
+        1] from keys [2] or per-volume [G, 2], with the task's noise a step.
+        Returns [0, 1] images."""
+        x_start = (normalize_to_neg_one_to_one(x_start01.to(self.device).float())
+                   if x_start01 is not None else None)
+        kw = dict(key=prng.key_words(keys),
+                  noise_fn=self.key_noise, cond=cond, start_t=start_t, x_start=x_start)
+        if use_ddim:
+            return ddim_sample(self.sched, self.gd_cfg, self.unet, tuple(shape),
+                               sampling_timesteps=sampling_timesteps or 50, **kw)
+        return p_sample_loop(self.sched, self.gd_cfg, self.unet, tuple(shape), **kw)
 
     def anomaly_scores(self, loss: float) -> dict:
         """Volume anomaly scores from the eval diffusion loss, used when
@@ -455,9 +642,7 @@ class SparkTask(nn.Module):
         [G, 2]: volume v's depth // G slices take ``random_mask_from_key(
         keys[v], ...)``, so a volume draws the mask it draws alone (and the
         JAX package's mask for the same key)."""
-        keys = torch.as_tensor(keys).cpu().numpy().astype(np.int64).astype(np.uint32)
-        if keys.ndim != 2 or keys.shape[1] != 2:
-            raise ValueError(f"keys must be [G, 2], got {keys.shape}")
+        keys = key_stack(keys)
         g = keys.shape[0]
         if depth % g:
             raise ValueError(f"depth {depth} does not split into {g} volumes")

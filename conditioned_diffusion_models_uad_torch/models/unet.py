@@ -10,9 +10,12 @@ package's ``utils/convert_torch.py`` reads this module's ``state_dict``.
 
 Parameters are float32; each layer casts its weights to the compute dtype of
 its input, as flax's ``dtype=`` does. Activations are NCHW in
-``channels_last`` memory format. Not ported yet: ``film_fold``, the
-``spatial_transformer`` attention sites and the conv up/down variants
-(``resblock_updown=False``); they raise NotImplementedError.
+``channels_last`` memory format. ``use_checkpoint`` recomputes each
+ResBlock's forward in the backward pass (the JAX package's ``nn.remat``)
+whenever gradients are recorded. Not ported yet: ``film_fold``, the
+``spatial_transformer`` attention sites, the conv up/down variants
+(``resblock_updown=False``) and ``use_scale_shift_norm=False``; they raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, qk_scale
 
@@ -201,6 +205,7 @@ class UNetConfig:
     use_scale_shift_norm: bool = True
     resblock_updown: bool = True
     spatial_transformer: bool = False
+    use_checkpoint: bool = False  # recompute ResBlocks in the backward pass
     fused_attention: bool = False
     norm_precision: str = "float32"
     film_fold: bool = False
@@ -296,10 +301,15 @@ class UNetModel(nn.Module):
                 yield m.proj_out
         yield self.out[2]
 
-    @staticmethod
-    def _run(block, h, emb):
+    def _run(self, block, h, emb):
+        recompute = self.cfg.use_checkpoint and torch.is_grad_enabled()
         for layer in block:
-            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            if not isinstance(layer, ResBlock):
+                h = layer(h)
+            elif recompute:
+                h = checkpoint(layer, h, emb, use_reentrant=False)
+            else:
+                h = layer(h, emb)
         return h
 
     def forward(self, x, t, cond=None):

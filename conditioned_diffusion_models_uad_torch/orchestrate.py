@@ -14,13 +14,15 @@ reference src/train.py:31-250).
   hands its 1% FPR quantile on instead
 * ``<run>/<fold>_preds_dict.pkl`` and scalar summaries logged
 
-Each eval volume draws its noise from the seeds the JAX package gives it:
-volume i of a stage takes ``fold_in(PRNGKey(seed + 1000 + fold), i)``, and
-its ensemble member m the seed ``randint(split(key_i, E)[m], (), 0,
-2**31 - 1)`` (``volume_seeds``, through ``utils/prng.py``); a SparK volume
-takes the key ``fold_in(PRNGKey(seed + 1000 + fold), i)`` itself, from
-which it draws its mask (``volume_draws``). Grouping never moves a
-volume's metrics. ``run_stage`` is the per-stage group loop.
+Each eval volume draws its noise from the keys the JAX package gives it:
+volume i of a stage takes ``key_i = fold_in(PRNGKey(seed + 1000 + fold),
+i)`` (``volume_draws``, through ``utils/prng.py``). The cDDPM's single-shot
+reconstruction on the hash noise path takes the seeds of its ensemble
+members, ``randint(split(key_i, E)[m], (), 0, 2**31 - 1)``
+(``volume_seeds``); its iterative and patched reconstructions, table noise
+and SparK (its eval mask) take ``key_i`` itself and split it further as the
+JAX package does. Grouping never moves a volume's metrics. ``run_stage`` is
+the per-stage group loop.
 """
 from __future__ import annotations
 
@@ -72,10 +74,12 @@ def volume_seeds(key, idxs: Iterable[int], ensemble: int) -> torch.Tensor:
 
 
 def volume_draws(task, key, idxs: Iterable[int]) -> torch.Tensor:
-    """What ``task.reconstruct_with_aux`` takes for volumes ``idxs`` of a
-    stage, one row a volume: a SparK task the keys ``fold_in(key, i)`` [G, 2]
-    (int64 holding the uint32 words), the cDDPM its ``volume_seeds``."""
-    if isinstance(task, SparkTask):
+    """What the task's reconstruction takes for volumes ``idxs`` of a stage,
+    one row a volume: the keys ``fold_in(key, i)`` [G, 2] (int64 holding the
+    uint32 words) for SparK and for a cDDPM whose reconstruction takes keys
+    (``DDPMTask.draws_keys``: iterative, patched or table noise), else the
+    cDDPM's ``volume_seeds``."""
+    if isinstance(task, SparkTask) or task.draws_keys:
         return torch.from_numpy(prng.fold_in(key, np.asarray(list(idxs))).astype(np.int64))
     return volume_seeds(key, idxs, task.cfg.ensemble_size)
 
@@ -303,7 +307,7 @@ def evaluate(cfg: RunConfig, task, fold: int, logger,
     under '<set>/<stage>'."""
     dev = cfg.device
     recon = VolumeReconstructor(task, num_eval_slices=getattr(cfg.model, "num_eval_slices", None),
-                                device=dev)
+                                patched=getattr(cfg.model, "patched", False), device=dev)
     key = eval_key(cfg.seed, fold)
     preds = {"val": {}, "test": {}}
     allowed = SETS_BY_MODE.get(cfg.data.mode, list(EVAL_MODULES))

@@ -6,8 +6,9 @@ One step gathers the batch's slices from volumes already on the device,
 applies the intensity augmentation, evaluates the task's ``loss`` with its
 BatchNorm in training mode, back-propagates and takes an Adam (AdamW for
 SparK) step. Random draws come in as the task's draws (``TrainDraws`` from
-``DDPMTask.draw_train``, ``SparkDraws`` from ``SparkTask.draw_train``), so
-a step is a function of the state, the indices and the draws.
+``DDPMTask.draw_train``, with the patch boxes of the pDDPM; ``SparkDraws``
+from ``SparkTask.draw_train``), so a step is a function of the state, the
+indices and the draws.
 
 ``Trainer.fit`` runs the epochs: the index stream of epoch e comes from
 ``np.random.default_rng([seed + fold, e])`` (the JAX package's), validation

@@ -1,6 +1,7 @@
 """The threefry2x32 keys of the JAX package, in numpy (counterpart of the
-``jax.random`` calls that package makes: ``PRNGKey``, ``split``,
-``fold_in``, ``randint`` for int32 and ``uniform`` for float32).
+``jax.random`` calls that package makes: ``PRNGKey``, ``split`` (and
+``split_keys`` over a stack of keys), ``fold_in``, ``randint`` for int32,
+``uniform`` for float32 and ``permutation``).
 
 Bit-equal to ``jax.random`` with its defaults (``jax_default_prng_impl``
 threefry2x32, ``jax_threefry_partitionable`` on, 32-bit integers): a key is a
@@ -8,8 +9,10 @@ threefry2x32, ``jax_threefry_partitionable`` on, 32-bit integers): a key is a
 ``i`` and the bits drawn at flat position ``i`` all hash the counter pair
 (i >> 32, i & 0xFFFFFFFF) under the parent key. The port draws each eval
 volume's noise seeds with it, so a volume gets the seeds the JAX package
-gives it (``orchestrate.volume_seeds``), and each SparK eval volume its
-mask (``models/spark.py::eval_random_mask``).
+gives it (``orchestrate.volume_seeds``), each SparK eval volume its mask
+(``models/spark.py::eval_random_mask``), and the iterative samplers and the
+patched reconstruction their key chains (``diffusion/gaussian.py``,
+``models/tasks.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,14 @@ def _u32(x) -> np.ndarray:
 
 def _rotl(x: np.ndarray, r: int) -> np.ndarray:
     return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def key_words(keys) -> np.ndarray:
+    """Keys [..., 2] held as uint32 words or as int64 (a tensor's form of
+    them), an array or a tensor, as uint32."""
+    if hasattr(keys, "numpy"):
+        keys = keys.cpu().numpy()
+    return np.asarray(keys).astype(np.int64).astype(np.uint32)
 
 
 def threefry2x32(key, x1, x2):
@@ -66,6 +77,17 @@ def split(key, num: Union[int, Sequence[int]] = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=-1)
 
 
+def split_keys(keys, num: int = 2) -> np.ndarray:
+    """``split`` over a stack of keys (the JAX package's
+    ``diffusion/gaussian.py::split_keys``): keys [2] -> [num, 2], as
+    ``split``; keys [G, 2] -> [num, G, 2], slot [m, v] being
+    ``split(keys[v], num)[m]``."""
+    keys = _u32(keys)
+    if keys.ndim == 1:
+        return split(keys, num)
+    return np.moveaxis(split(keys[..., None, :], num), -2, 0)
+
+
 def fold_in(key, data) -> np.ndarray:
     """``jax.random.fold_in(key, data)``; ``data`` may be an array of
     indices, giving keys [*data.shape, 2]."""
@@ -83,12 +105,19 @@ def random_bits(key, shape=()) -> np.ndarray:
 def randint(key, shape=(), minval: int = 0, maxval: int = INT32_MAX) -> np.ndarray:
     """``jax.random.randint(key, shape, minval, maxval, jnp.int32)`` for
     bounds in int32 range: two bit streams combined modulo the span, in
-    wrapping uint32 arithmetic."""
+    wrapping uint32 arithmetic. ``key`` may be a stack [N, 2] when
+    ``shape`` is (): one draw a key, [N]."""
     lo, hi = int(minval), int(maxval)
     if not (-2**31 <= lo <= INT32_MAX and -2**31 <= hi <= INT32_MAX):
         raise ValueError(f"randint bounds [{lo}, {hi}) outside int32")
-    k1, k2 = split(key)
-    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    key = _u32(key)
+    bits_shape = tuple(shape)
+    if key.ndim > 1:
+        if bits_shape != ():
+            raise ValueError("a stack of keys draws scalars only")
+        shape = key.shape[:-1]
+    k1, k2 = split_keys(key)
+    higher, lower = random_bits(k1, bits_shape), random_bits(k2, bits_shape)
     span = np.uint32(1 if hi <= lo else hi - lo)
     # 2**32 % span as JAX computes it: the square wraps at 2**32 first
     mult = np.uint32(((2**16 % int(span)) ** 2 & 0xFFFFFFFF) % int(span))
@@ -110,3 +139,19 @@ def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0) -> np.ndarr
     lo, hi = np.float32(minval), np.float32(maxval)
     scaled = (floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(np.float32)
     return np.maximum(lo, scaled).reshape(tuple(shape))
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)`` for an int ``n``: ``arange(n)``
+    sorted on 32-bit random keys, ties kept in index order (``lax.
+    sort_key_val`` is stable), in ceil(3 ln n / ln(2**32 - 1)) rounds, each
+    drawing its keys from the second half of a split (one round up to
+    n = 1625). int32 [n]."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    key = _u32(key)
+    for _ in range(rounds):
+        key, sub = split(key)
+        bits = random_bits(sub, (n,))
+        x = x[np.argsort(bits, kind="stable")]
+    return x

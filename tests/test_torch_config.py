@@ -2,8 +2,10 @@
 configs/experiment/cDDPM/*.yaml that the port supports give the same dict
 and the same typed configs (every field the two packages share), with group
 re-selection, dotted overrides and ${env:...} interpolation, SparK
-pretraining and the encoder import included; the experiments the port does
-not support raise NotImplementedError naming what is missing. The port's RunConfig adds one field, device. Exact."""
+pretraining and the encoder import included; the pDDPM experiment and the
+use_checkpoint / sampling_steps / reco_mode overrides, which the port once
+refused, materialize as in the JAX package too. The port's RunConfig adds
+one field, device. Exact."""
 import dataclasses
 import os
 
@@ -59,12 +61,21 @@ def test_compose_and_materialize_match_jax(experiment, overrides, monkeypatch):
     ("cDDPM/DDPM_patched", [], "patched"),
     ("cDDPM/DDPM_cond_spark_2D", ["model.use_checkpoint=true"], "use_checkpoint"),
     ("cDDPM/DDPM_cond_spark_2D", ["model.sampling_steps=20"], "sampling_steps"),
+    ("cDDPM/DDPM_cond_spark_2D", ["model.reco_mode=ddim", "model.sampling_steps=20"],
+     "reco_mode"),
+    ("cDDPM/DDPM_cond_spark_2D", ["model.reco_mode=ancestral"], "reco_mode"),
+    ("cDDPM/DDPM", ["model.reco_mode=ddim"], "reco_mode"),
 ])
-def test_unsupported_experiments_raise(experiment, overrides, what):
+def test_unsupported_experiments_raise(experiment, overrides, what, monkeypatch):
+    """The experiments and overrides the port refused before it ported the
+    pDDPM, ResBlock recompute and the samplers: each now materializes equal
+    to the JAX package's, the named field included."""
+    monkeypatch.setenv("DATA_DIR", "/data/here")
     tree = P.compose(CONFIGS, experiment, overrides)
-    J.materialize(J.compose(CONFIGS, experiment, overrides))  # the JAX package runs it
-    with pytest.raises(NotImplementedError, match=what):
-        P.materialize(tree)
+    assert tree == J.compose(CONFIGS, experiment, overrides)
+    got, want = P.materialize(tree), J.materialize(tree)
+    _same_typed(got, want)
+    assert getattr(got.model, what) == getattr(want.model, what)
 
 
 @pytest.mark.parametrize("experiment,overrides", [

@@ -176,8 +176,9 @@ def test_batch_call_scored_matches_jax_and_records():
 
 def test_reconstructor_contract():
     task = _port_task()
-    with pytest.raises(NotImplementedError):
-        VolumeReconstructor(task, patched=True, device="cpu")
+    patched = VolumeReconstructor(task, patched=True, device="cpu")
+    assert patched._reconstruct == task.reconstruct_patched_with_aux
+    assert patched.latent_len() == 1 and task.latent_len == 16
     recon = VolumeReconstructor(task, device="cpu", num_eval_slices=4)
     g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
     vol = _subjects()[0]["vol"]
@@ -214,3 +215,27 @@ def test_port_imports_no_jax_sklearn_matplotlib():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_patched_reconstructor_matches_jax():
+    """VolumeReconstructor(patched=True).batch_call (the pDDPM grid eval) on
+    two volumes under per-volume keys [2, 2], table simplex noise on both
+    sides: reconstructions at TOL; the last box's loss; the zeros latent
+    (its slice mean: one 0)."""
+    cfg = dict(TINY, unet_dim=32, condition=False, patched=True, patch_hw=(16, 16), inpaint=True,
+               noise_ensemble=False)
+    task = randomize_(DDPMTask(DDPMTaskConfig(**cfg), device="cpu", noise_impl="table"), 22)
+    jtask = jtasks.DDPMTask(jtasks.DDPMTaskConfig(**cfg))
+    sd = {("diffusion.model." + k[5:]) if k.startswith("unet.") else k: v.numpy()
+          for k, v in task.state_dict().items()}
+    variables = convert_reference_ddpm_checkpoint(sd, jtask)
+    vols = [s["vol"] for s in _subjects()]
+    keys = jax.random.split(jax.random.PRNGKey(6), 2)
+    want = JVolumeReconstructor(jtask, patched=True).batch_call(variables, vols, keys)
+    got = VolumeReconstructor(task, patched=True, device="cpu").batch_call(
+        vols, torch.from_numpy(np.asarray(keys).astype(np.int64)))
+    for (reco, aux), (w_reco, w_aux) in zip(got, want):
+        assert reco.shape == SHAPE and np.asarray(w_reco).std() > 0.05
+        np.testing.assert_allclose(reco.numpy(), np.asarray(w_reco), rtol=0, atol=TOL)
+        np.testing.assert_allclose(float(aux["loss"]), float(w_aux["loss"]), rtol=0, atol=TOL)
+        assert aux["latent"].tolist() == [0.0] and np.asarray(w_aux["latent"]).tolist() == [0.0]
