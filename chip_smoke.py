@@ -22,8 +22,16 @@ ancestral chain in float32, card against CPU; ``iterative_full_size``:
 DDIM-50 and a 50-step ancestral chain on an eval group, bf16), the patched
 DDPM (``patched_correctness``: the float32 grid eval and train step, card
 against CPU; ``patched_full_size``: an eval group and the batch-32 step with
-``use_checkpoint`` on and off), and the run from NIfTI files through the
-port's CLI (``run_from_files``: SparK pretraining, then the cDDPM from its
+``use_checkpoint`` on and off), the model variants (``variants_correctness``:
+the spatial transformer, conv up/down, the additive embedding, film_fold,
+dropout and aug_full in float32, card against CPU, and the 3D simplex
+noise; ``variants_full_size``: the batch-32 train step with aug_full and an
+eval group of the spatial-transformer and film_fold configs, and the
+UNetConfig-only flags on the UNet), the data preparation CLI
+(``prepare_full_size``: synthetic raw IXI and BraTS subjects registered to
+a synthetic atlas in a subprocess, one subject again on the CPU, the
+prepared files through the datamodule), and the run from NIfTI files through
+the port's CLI (``run_from_files``: SparK pretraining, then the cDDPM from its
 encoder, each fit with validation, checkpoints and CSV logs, then the val ->
 test eval from the files; an eval-only reload, the pDDPM fit and eval, an
 eval-only DDIM rerun, device against host preprocessing; the files
@@ -1144,8 +1152,9 @@ def _train_one(task, opt, data, vi, si, draws, choices, replay):
     from conditioned_diffusion_models_uad_torch.utils.decisions import recorded_choices
 
     dev = task.device
+    on_dev = tuple(None if x is None else x.to(dev) for x in data)
     with recorded_choices(choices, replay=replay) as count:
-        loss = train_step(task, opt, (data[0].to(dev), None), vi.to(dev), si.to(dev), draws)
+        loss = train_step(task, opt, on_dev, vi.to(dev), si.to(dev), draws)
     return dict(loss=loss.item(), count=count,
                 grads={n: p.grad.detach().double().cpu() for n, p in task.named_parameters()},
                 params={n: p.detach().double().cpu() for n, p in task.named_parameters()},
@@ -1222,16 +1231,19 @@ def phase_train_correctness():
             require(v <= lim, f"card vs CPU at step {i}: {k} {v} > {lim}")
 
 
-def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
+def _train_step_numbers(task, b, seed, profile_file, n_learn=50, reps=20, augment=True,
+                        n_prof=3):
     """The train step of ``task`` at batch ``b`` on the card, slices gathered
-    from random volumes with aug_intensity: 3 warm-up steps, then s/step over
-    20 (the launch counters set to 0 just before them and read just after),
-    layer ms between CUDA events over 5, a profiled window of 3 (kernel ms by
-    kind, top kernels, idle share; the table is written to
-    ``profile_file`` in the output directory), and ``n_learn`` steps on the one batch, with the loss at
-    one fixed set of draws (train mode, running statistics restored after
-    each reading) read before and after. Returns (numbers, launches per
-    step)."""
+    from random volumes with aug_intensity (``augment='full'``: the full set,
+    on the slices and their masks): 3 warm-up steps, then s/step over
+    ``reps`` (the launch counters set to 0 just before them and read just
+    after), layer ms between CUDA events over 5, a profiled window of
+    ``n_prof`` steps (kernel ms by kind, top kernels, idle share; the table
+    is written to ``profile_file`` in the output directory), and
+    (``n_learn`` > 0)
+    ``n_learn`` steps on the one batch, with the loss at one fixed set of
+    draws (train mode, running statistics restored after each reading) read
+    before and after. Returns (numbers, launches per step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1243,15 +1255,16 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
 
     opt = make_optimizer(task)
     data, vi, si, g = _train_setup(b, "cuda", seed)
+    if augment == "full":
+        data = (data[0], data[0] > 0.5)
 
     def step():
-        return train_step(task, opt, data, vi, si, task.draw_train(g, b))
+        return train_step(task, opt, data, vi, si, task.draw_train(g, b, augment=augment))
 
     for _ in range(3):
         loss = step()
     require(math.isfinite(loss.item()), "train loss not finite")
 
-    reps = 20
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     counters = _zero_launches()
@@ -1268,7 +1281,7 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
     n_parts = 5
     for _ in range(n_parts):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        draws = task.draw_train(g, b)
+        draws = task.draw_train(g, b, augment=augment)
         ev[0].record()
         batch = gathered_batch(data, vi, si, draws.aug)
         ev[1].record()
@@ -1284,7 +1297,6 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
             parts[k] += ev[i].elapsed_time(ev[i + 1]) / n_parts
 
     torch.cuda.synchronize()
-    n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
@@ -1307,20 +1319,25 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
     (out_dir / profile_file).write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
 
-    fixed = task.draw_train(g, b)
+    learn = {}
+    if n_learn:
+        fixed = task.draw_train(g, b, augment=augment)
 
-    def fixed_loss():
-        stats = _running_stats(task)
-        with torch.no_grad():
-            value = task.loss(gathered_batch(data, vi, si, fixed.aug), fixed)[0].item()
-        task.load_state_dict(stats, strict=False)
-        return value
+        def fixed_loss():
+            stats = _running_stats(task)
+            with torch.no_grad():
+                value = task.loss(gathered_batch(data, vi, si, fixed.aug), fixed)[0].item()
+            task.load_state_dict(stats, strict=False)
+            return value
 
-    before = fixed_loss()
-    learn_losses = [step().item() for _ in range(n_learn)]
-    after = fixed_loss()
-    require(all(math.isfinite(v) for v in learn_losses), "train loss not finite")
-    require(after < before, f"fixed-draw loss did not fall: {before} -> {after}")
+        before = fixed_loss()
+        learn_losses = [step().item() for _ in range(n_learn)]
+        after = fixed_loss()
+        require(all(math.isfinite(v) for v in learn_losses), "train loss not finite")
+        require(after < before, f"fixed-draw loss did not fall: {before} -> {after}")
+        learn = {"fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
+                 "learn_steps": n_learn,
+                 "learn_loss_first_last": [learn_losses[0], learn_losses[-1]]}
     return {"batch": b, "launches_per_step": per_step, "s_per_step": s_per_step,
             "train_slices_per_sec": b / s_per_step, "layer_ms": parts,
             "peak_memory_gb": peak_gb,
@@ -1331,10 +1348,7 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50):
             # the profiler slows the host; against the unprofiled step time
             "device_idle_share_unprofiled": max(0.0, 1.0 - busy_ms / n_prof
                                                 / (s_per_step * 1e3)),
-            "kernel_ms_per_step_by_kind": by_kind, "top_kernels": top,
-            "fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
-            "learn_steps": n_learn,
-            "learn_loss_first_last": [learn_losses[0], learn_losses[-1]]}, per_step
+            "kernel_ms_per_step_by_kind": by_kind, "top_kernels": top, **learn}, per_step
 
 
 def phase_train_full_size():
@@ -1760,6 +1774,453 @@ def phase_patched_full_size():
     return eval_launches, train["use_checkpoint"]["launches_per_step"]
 
 
+# the model variants: (name, DDPMTaskConfig flags) of the two task configs
+# the CLI reaches (model.spatial_transformer / model.film_fold)
+VARIANTS = (("spatial_transformer", {"spatial_transformer": True}),
+            ("film_fold", {"film_fold": True}))
+# the UNetConfig-only flags, on the UNetModel itself
+UNET_ONLY_FLAGS = {"resblock_updown": False, "use_scale_shift_norm": False}
+TOL_SIMPLEX3D = 1e-5
+
+
+def _unet_calls(task):
+    """A forward pre-hook on the task's UNet recording each call's batch;
+    returns (list, handle)."""
+    calls = []
+    handle = task.unet.register_forward_pre_hook(lambda mod, args: calls.append(
+        int(args[0].shape[0])))
+    return calls, handle
+
+
+def phase_variants_correctness():
+    """The variants in float32 (TF32 off), card against CPU from the same
+    seeded weights and draws: a reduced-width UNetModel forward with the
+    UNetConfig-only flags and the spatial transformer; one DDPMTask train
+    step of each variant at the flagship widths with dropout_unet 0.1 and
+    aug_full (shared draws and dropout masks, the card's piecewise choices
+    replayed on the CPU), held under TRAIN_TOL; the 3D simplex noise."""
+    import copy
+
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.models.unet import UNetConfig, UNetModel
+    from conditioned_diffusion_models_uad_torch.ops.simplex3d import (
+        SimplexNoise,
+        fractal_noise_3d,
+        fractal_noise_3d_fixed_t,
+    )
+    from conditioned_diffusion_models_uad_torch.train.loop import make_optimizer
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ucfg = UNetConfig(model_channels=64, channel_mult=(1, 2, 2), num_res_blocks=1,
+                      spatial_transformer=True, **UNET_ONLY_FLAGS)
+    g = torch.Generator().manual_seed(21)
+    x = torch.rand((4, 96, 96, 1), generator=g) * 2 - 1
+    t = torch.randint(0, 1000, (4,), generator=g)
+    c = torch.randn((4, 128), generator=g)
+    unet = randomize_(UNetModel(ucfg), 3).eval()
+    with torch.no_grad():
+        want = unet(x, t, c)
+        unet.to("cuda", memory_format=torch.channels_last)
+        got = unet(x.cuda(), t.cuda(), c.cuda()).cpu()
+    unet_err = (got - want).abs().max().item()
+    del unet
+    require(bool(torch.isfinite(got).all()) and got.std().item() > 1e-3,
+            "variant UNet output not finite or constant")
+    require(unet_err <= TOL_SLICE_FP32, f"variant UNet card vs CPU {unet_err}")
+
+    b = 4
+    data, vi, si, g = _train_setup(b, "cpu", 8)
+    data = (data[0], data[0] > 0.5)
+    steps, secs = {}, {"cuda": 0.0, "cpu": 0.0}
+    for name, flags in VARIANTS:
+        kw = dict(dtype="float32", dropout_unet=0.1, **flags)
+        cpu_task = _flagship_task("cpu", **kw)
+        draws = cpu_task.draw_train(g, b, augment="full")
+        card_task = _flagship_task("cuda", **kw)
+        card_opt, cpu_opt = make_optimizer(card_task), make_optimizer(cpu_task)
+        cpu_task.load_state_dict(card_task.state_dict())
+        cpu_opt.load_state_dict(copy.deepcopy(card_opt.state_dict()))
+        choices = []
+        t0 = time.perf_counter()
+        card = _train_one(card_task, card_opt, data, vi, si, draws, choices, replay=False)
+        t1 = time.perf_counter()
+        cpu = _train_one(cpu_task, cpu_opt, data, vi, si, draws, choices, replay=True)
+        secs["cuda"] += t1 - t0
+        secs["cpu"] += time.perf_counter() - t1
+        steps[name] = {"loss_cuda": card["loss"], "loss_cpu": cpu["loss"],
+                       "choices": cpu["count"],
+                       "card_vs_cpu": _train_spread(card, cpu, card_task.cfg.lr)}
+        del card_task, cpu_task, card, cpu
+        torch.cuda.empty_cache()
+
+    noise = {}
+    shape3 = (32, 96, 96)
+    for seed in (0, 12345):
+        a = fractal_noise_3d(torch.tensor(seed, device="cuda"), shape3, 6, 0.8, 64.0)
+        b3 = fractal_noise_3d(seed, shape3, 6, 0.8, 64.0, device="cpu")
+        ft = fractal_noise_3d_fixed_t(seed, 37.0, (96, 96), 4, 0.6, 16.0, device="cuda")
+        fc = fractal_noise_3d_fixed_t(seed, 37.0, (96, 96), 4, 0.6, 16.0, device="cpu")
+        noise[str(seed)] = {"fractal_3d": (a.cpu() - b3).abs().max().item(),
+                            "fixed_t": (ft.cpu() - fc).abs().max().item(),
+                            "std": a.std().item()}
+    counters = _zero_launches()
+    field = SimplexNoise(7, device="cuda").rand_2d_octaves((96, 96), 6, 0.8, 64)
+    k1_launches = _read_launches(counters)["fractal_noise_2d"]
+    plain = SimplexNoise(7, device="cpu").rand_2d_octaves((96, 96), 6, 0.8, 64)
+    noise["rand_2d_octaves"] = (field.cpu() - plain).abs().max().item()
+    emit({"phase": "variants_correctness", "tf32": False,
+          "unet": {"config": "UNetConfig(model_channels=64, mult (1,2,2), 1 res block, "
+                             "spatial_transformer, resblock_updown=False, "
+                             "use_scale_shift_norm=False, float32)", "batch": 4,
+                   "max_abs_err_vs_cpu": unet_err, "tol": TOL_SLICE_FP32},
+          "train_step": {"config": "DDPMTaskConfig(dtype='float32', dropout_unet=0.1) "
+                                   "+ variant flag, aug_full", "batch": b, "steps": steps,
+                         "limit": TRAIN_TOL, "cuda_s": secs["cuda"], "cpu_s": secs["cpu"]},
+          "simplex3d": {"shape": list(shape3), "max_abs_err_vs_cpu": noise,
+                        "tol": TOL_SIMPLEX3D, "rand_2d_octaves_k1_launches": k1_launches}})
+    for name, st in steps.items():
+        require(math.isfinite(st["loss_cuda"]), f"{name}: card train loss not finite")
+        for k, lim in TRAIN_TOL.items():
+            v = st["card_vs_cpu"][k]
+            require(v <= lim, f"{name}: card vs CPU {k} {v} > {lim}")
+    for seed, errs in noise.items():
+        if seed == "rand_2d_octaves":
+            require(errs <= TOL_K1, f"rand_2d_octaves card vs CPU {errs}")
+            continue
+        require(errs["std"] > 0.05, "3D simplex noise is constant")
+        require(errs["fractal_3d"] <= TOL_SIMPLEX3D and errs["fixed_t"] <= TOL_SIMPLEX3D,
+                f"3D simplex card vs CPU {errs}")
+    require(k1_launches == 1, f"SimplexNoise.rand_2d_octaves launched K1 {k1_launches} times")
+
+
+def _variant_eval_group(task):
+    """One single-shot eval group (2 volumes at EVAL_SHAPE) through
+    ``VolumeReconstructor.batch_call``, after a warm-up call: seconds, UNet
+    calls and batches, and the launches."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+    from conditioned_diffusion_models_uad_torch.orchestrate import eval_key, volume_draws
+
+    recon = VolumeReconstructor(task)
+    vols = [s["vol"] for s in _eval_subjects(2, 33, True)]
+    draws = volume_draws(task, eval_key(3141, 0), [0, 1])
+    recon.batch_call(vols, draws)
+    torch.cuda.synchronize()
+    calls, hook = _unet_calls(task)
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    res = recon.batch_call(vols, draws)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    launches = _read_launches(counters)
+    hook.remove()
+    for reco, aux in res:
+        require(reco.shape == EVAL_SHAPE and bool(torch.isfinite(reco).all())
+                and reco.float().std().item() > 1e-3, "variant eval reconstruction")
+    denoises = sum(calls)
+    return {"volumes": 2, "shape": list(EVAL_SHAPE), "unet_calls": len(calls),
+            "unet_batches": calls, "s_per_group": group_s,
+            "slice_denoises_per_sec": denoises / group_s, "launches": launches}
+
+
+def phase_variants_full_size():
+    """The two variants at the flagship widths (DDPMTaskConfig(): UNet 128,
+    mult (1,2,2), 3 res blocks, bf16, ResNet-50 encoder): (a) the spatial
+    transformer with dropout_unet 0.1, (b) film_fold. Each: the batch-32
+    train step with aug_full through train/loop.py (s/step, idle share,
+    peak memory) and one single-shot eval group (slice-denoises/s). Then
+    the UNetConfig-only flags on the UNetModel: a bf16 forward and backward
+    at batch 32. Returns the launches of each path."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.models.unet import UNetConfig, UNetModel
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    out, launches = {}, {}
+    for name, flags in VARIANTS:
+        kw = dict(flags, dropout_unet=0.1) if name == "spatial_transformer" else dict(flags)
+        t0 = time.perf_counter()
+        task = _flagship_task("cuda", **kw)
+        t1 = time.perf_counter()
+        numbers, per_step = _train_step_numbers(task, 32, 17, f"profile_train_{name}.txt",
+                                                n_learn=0, reps=10, augment="full", n_prof=1)
+        t2 = time.perf_counter()
+        group = _variant_eval_group(task)
+        out[name] = {"flags": kw, "train_step": numbers, "eval_group": group,
+                     "phase_s": {"setup": t1 - t0, "train": t2 - t1,
+                                 "eval": time.perf_counter() - t2}}
+        launches[f"{name}_train_step"] = per_step
+        launches[f"{name}_eval_group"] = group["launches"]
+        del task
+        torch.cuda.empty_cache()
+
+    cfg = UNetConfig(dtype="bfloat16", norm_precision="compute", fused_attention=True,
+                     **UNET_ONLY_FLAGS)
+    unet = randomize_(UNetModel(cfg), 5).to("cuda", memory_format=torch.channels_last)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.rand((32, 96, 96, 1), generator=g, device="cuda") * 2 - 1
+    t = torch.randint(0, 1000, (32,), generator=g, device="cuda")
+    c = torch.randn((32, 128), generator=g, device="cuda")
+
+    def fwd_bwd():
+        unet.zero_grad(set_to_none=True)
+        y = unet(x, t, c)
+        y.abs().mean().backward()
+        return y
+
+    for _ in range(2):
+        y = fwd_bwd()
+    require(bool(torch.isfinite(y).all()), "UNetConfig-only flags: output not finite")
+    reps = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    s_call = (time.perf_counter() - t0) / reps
+    per_call = {k: v / reps for k, v in _read_launches(counters).items()}
+    launches["unet_only_fwd_bwd"] = per_call
+    out["unet_only_flags"] = {"flags": UNET_ONLY_FLAGS, "batch": 32,
+                              "s_per_fwd_bwd": s_call, "slices_per_sec": 32 / s_call,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "launches_per_call": per_call}
+    del unet, x, y
+    torch.cuda.empty_cache()
+    emit({"phase": "variants_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "DDPMTaskConfig() (bf16, norm_precision=compute, fused_attention) + "
+                    "variant flags, Adam lr 1e-4, aug_full", **out})
+    st = out["spatial_transformer"]
+    ff = out["film_fold"]
+    for name, rec in (("spatial_transformer", st), ("film_fold", ff)):
+        per_step = launches[f"{name}_train_step"]
+        require(per_step["fractal_noise_2d"] >= 1, f"{name}: K1 not launched per step")
+        require(rec["eval_group"]["launches"]["fractal_noise_2d"] >= 1,
+                f"{name}: K1 not launched in the eval group")
+    require(launches["spatial_transformer_train_step"]["fused_attention"] == 0
+            and st["eval_group"]["launches"]["fused_attention"] == 0,
+            "the spatial transformer launched K2")
+    require(launches["film_fold_train_step"]["fused_attention"] == 1
+            and launches["film_fold_train_step"]["attention_fwd_mma"] == 1,
+            f"film_fold train step: K2 launches {launches['film_fold_train_step']}")
+    require(ff["eval_group"]["launches"]["attention_fwd_mma"] == ff["eval_group"]["unet_calls"]
+            and ff["eval_group"]["launches"]["attention_fwd_scalar"] == 0,
+            f"film_fold eval group: K2 launches {ff['eval_group']}")
+    require(per_call["attention_fwd_mma"] == 1, f"UNetConfig-only flags: K2 {per_call}")
+    for rec in launches.values():
+        require(rec["fused_groupnorm_silu"] == 0, "K3 launched on a UNet path")
+    return launches
+
+
+# prepare_full_size: IXI's T2 acquisitions (256 x 256 x 130 at 0.94 x 0.94 x
+# 1.2 mm), BraTS 2021's grid (240 x 240 x 155 at 1 mm, skull-stripped), and
+# an atlas on SRI24's grid (240 x 240 x 155 at 1 mm)
+PREP_IXI = ((256, 256, 130), (0.94, 0.94, 1.2))
+PREP_BRATS = ((240, 240, 155), (1.0, 1.0, 1.0))
+PREP_SUBJECTS = {"IXI": 4, "Brats21": 2}
+# card vs CPU on one prepared IXI subject with the card's affine replayed:
+# the brain mask bit for bit, the volume relative to its largest value (the
+# N4 fit's float32 normal equations over ~9e6 voxels, summed in another
+# order)
+TOL_PREPARE_REL = 1e-3
+
+
+def _head(shape, spacing, g, *, skull, bias, rot_deg=0.0, shift_mm=(0.0, 0.0, 0.0),
+          lesion=None):
+    """A head-like phantom on the card: an ellipsoidal brain (radii 68 x 84 x
+    58 mm) with smooth tissue texture, dark ventricles and an off-centre
+    bright and dark structure, a skull shell (or, without it, the background
+    zeroed as in a skull-stripped scan), optionally a smooth bias field, a
+    rotation about the axis z, a shift, and a bright lesion (centre, radius
+    in mm) returned as its segmentation. Intensities ~[0, 1000] with a
+    little noise."""
+    import torch
+
+    dev = "cuda"
+    axes = [(torch.arange(n, device=dev, dtype=torch.float32) - (n - 1) / 2) * sp
+            for n, sp in zip(shape, spacing)]
+    x, y, z = torch.meshgrid(*axes, indexing="ij")
+    a = math.radians(rot_deg)
+    xr = math.cos(a) * x - math.sin(a) * y - shift_mm[0]
+    yr = math.sin(a) * x + math.cos(a) * y - shift_mm[1]
+    zr = z - shift_mm[2]
+    u, v, w = xr / 68.0, yr / 84.0, zr / 58.0
+    r = torch.sqrt(u * u + v * v + w * w)
+
+    def inside(d, width=0.02):
+        return torch.sigmoid(d / width)
+
+    tex = 0.0
+    for _ in range(5):
+        f = 1.0 + 3.0 * torch.rand(3, generator=g, device=dev)
+        ph = 2 * math.pi * torch.rand(3, generator=g, device=dev)
+        tex = tex + 0.06 * torch.cos(f[0] * math.pi * u + ph[0]) * torch.cos(
+            f[1] * math.pi * v + ph[1]) * torch.cos(f[2] * math.pi * w + ph[2])
+    vent = inside(0.18 - torch.sqrt((u / 0.6) ** 2 + ((v + 0.1) / 1.2) ** 2 + (w / 0.7) ** 2))
+    blobs = (0.25 * torch.exp(-((u - 0.4) ** 2 + (v + 0.3) ** 2 + (w - 0.2) ** 2) / 0.02)
+             - 0.2 * torch.exp(-((u + 0.35) ** 2 + (v - 0.35) ** 2 + (w + 0.3) ** 2) / 0.02))
+    img = inside(1.0 - r) * (0.6 + tex + blobs - 0.45 * vent)
+    seg = None
+    if lesion is not None:
+        (cx, cy, cz), rad = lesion
+        d = torch.sqrt((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2)
+        seg = (d <= rad).float()
+        img = img + 0.4 * inside(rad - d, 1.0) * inside(1.0 - r)
+    if skull:
+        img = img + 0.45 * inside(r - 1.12) * inside(1.22 - r)
+    if bias:
+        img = img * torch.exp(0.15 * u - 0.1 * v * w + 0.08 * w * w)
+    img = 1000 * img + 8 * torch.randn(shape, generator=g, device=dev).abs()
+    if not skull:
+        img = torch.where(r < 1.0, img, torch.zeros_like(img))
+    return img.clamp_min(0).cpu().numpy(), None if seg is None else seg.cpu().numpy()
+
+
+def phase_prepare_full_size(work: Path):
+    """The port's data preparation CLI in a subprocess on the card: 4
+    synthetic raw IXI-like subjects (skull, bias field, a random rotation and
+    shift each) registered to a synthetic SRI24-grid atlas, and 2 BraTS-like
+    subjects with their ``_seg``, all made from a seed. s/subject and the
+    seconds of each stage (from the CLI's --report; one subject at a time).
+    One IXI subject again on the CPU in-process with the card's affine
+    replayed: the brain mask equal, the volume within TOL_PREPARE_REL. Then
+    a prepared subject of each set loads through the datamodule's device
+    path, where run_from_files reads its files."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.data.datamodules import (
+        DataConfig,
+        load_subject,
+    )
+    from conditioned_diffusion_models_uad_torch.data.nifti import read_nifti, write_nifti
+    from conditioned_diffusion_models_uad_torch.data.preprocessing import (
+        DATASET_STAGES,
+        prepare_subject,
+    )
+
+    root = work / "prepare"
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    t0 = time.perf_counter()
+    atlas = root / "atlas" / "sri24_like.nii"
+    atlas.parent.mkdir(parents=True)
+    atlas_vol, _ = _head(*PREP_BRATS, g, skull=False, bias=False)
+    write_nifti(str(atlas), atlas_vol, spacing=PREP_BRATS[1])
+    raw = {name: root / "raw" / name for name in PREP_SUBJECTS}
+    for name, n in PREP_SUBJECTS.items():
+        raw[name].mkdir(parents=True)
+        for i in range(n):
+            rot = float(torch.empty(1).uniform_(-6, 6, generator=torch.Generator().manual_seed(
+                100 * len(name) + i)))
+            shift = tuple(float(s) for s in torch.empty(3).uniform_(
+                -5, 5, generator=torch.Generator().manual_seed(7 * i + len(name))))
+            if name == "IXI":
+                vol, _ = _head(*PREP_IXI, g, skull=True, bias=True, rot_deg=rot,
+                               shift_mm=shift)
+                write_nifti(str(raw[name] / f"IXI{i:03d}-T2.nii"), vol, spacing=PREP_IXI[1])
+            else:
+                vol, seg = _head(*PREP_BRATS, g, skull=False, bias=True, rot_deg=rot,
+                                 shift_mm=shift, lesion=((20.0, -15.0 + 10 * i, 10.0), 12.0))
+                stem = raw[name] / f"BraTS2021_{i:05d}"
+                write_nifti(f"{stem}.nii", vol, spacing=PREP_BRATS[1])
+                write_nifti(f"{stem}_seg.nii", seg, spacing=PREP_BRATS[1])
+    make_s = time.perf_counter() - t0
+
+    runs = {}
+    for name in PREP_SUBJECTS:
+        out = root / "Data" / name
+        report = root / f"report_{name}.jsonl"
+        cmd = [sys.executable, "-m", f"{PKG}.data.prepare_cli", "--dataset", name,
+               "--input", str(raw[name]), "--output", str(out), "--atlas", str(atlas),
+               "--threads", "1", "--report", str(report)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        (ROOT / "chiprun_out" / f"prepare_cli_{name}.txt").write_text(
+            proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        require(proc.returncode == 0, f"prepare_cli {name} exited {proc.returncode}: "
+                                      f"{proc.stderr[-2000:]}")
+        rows = [json.loads(line) for line in report.read_text().splitlines()]
+        stages = sorted({k for r in rows for k in r["seconds"]})
+        runs[name] = {"subjects": len(rows), "cli_wall_s": wall,
+                      "s_per_subject": sum(r["total_s"] for r in rows) / len(rows),
+                      "stage_s_mean": {k: sum(r["seconds"].get(k, 0.0) for r in rows)
+                                       / len(rows) for k in stages},
+                      "reg_mse_first_last": [[r["reg_mse"][0][0], r["reg_mse"][-1][1]]
+                                             for r in rows],
+                      "rows": rows}
+        runs[name]["files"] = sorted(p.name for p in out.iterdir())
+        runs[name]["want_files"] = sorted(
+            f"{Path(r['subject']).name.split('.')[0]}_{k}.nii.gz" for r in rows
+            for k in (("t1", "mask", "seg") if name == "Brats21" else ("t1", "mask")))
+
+    # one IXI subject on the CPU, the card's affine replayed
+    row = runs["IXI"]["rows"][0]
+    cfg = dataclasses.replace(DATASET_STAGES["IXI"], register=True)
+    cpu_dir = root / "cpu"
+    t0 = time.perf_counter()
+    cpu_out = prepare_subject(str(raw["IXI"] / row["subject"]), str(cpu_dir), cfg,
+                              atlas=read_nifti(str(atlas))[0], device="cpu",
+                              affine=np.asarray(row["affine"], np.float32))
+    cpu_s = time.perf_counter() - t0
+    card_dir = root / "Data" / "IXI"
+    card_mask = read_nifti(str(card_dir / Path(cpu_out["mask"]).name))[0]
+    card_vol = read_nifti(str(card_dir / Path(cpu_out["img"]).name))[0]
+    cpu_mask, cpu_vol = read_nifti(cpu_out["mask"])[0], read_nifti(cpu_out["img"])[0]
+    mask_equal = card_mask.shape == cpu_mask.shape and bool(np.array_equal(card_mask, cpu_mask))
+    vol_err = (float(np.abs(card_vol - cpu_vol).max() / np.abs(cpu_vol).max())
+               if card_vol.shape == cpu_vol.shape else float("inf"))
+
+    # the prepared files through the datamodule's device path
+    loads = {}
+    for name in PREP_SUBJECTS:
+        out = root / "Data" / name
+        stem = sorted(out.glob("*_t1.nii.gz"))[0].name[:-len("_t1.nii.gz")]
+        r = {"img_path": str(out / f"{stem}_t1.nii.gz"),
+             "mask_path": str(out / f"{stem}_mask.nii.gz"),
+             "seg_path": str(out / f"{stem}_seg.nii.gz") if name == "Brats21" else None,
+             "img_name": f"{stem}_t1", "age": 0, "label": int(name == "Brats21")}
+        sub = load_subject(r, DataConfig(preprocess_backend="device"), keep_orig=True,
+                           device="cuda")
+        vol = sub["vol"]
+        loads[name] = {"subject": stem, "vol_shape": list(vol.shape),
+                       "brain_voxels": int((sub["mask"] > 0).sum()),
+                       "seg_voxels": int((sub["seg"] > 0).sum()) if "seg" in sub else None}
+        require(bool(torch.isfinite(vol).all()) and vol.max().item() > 0.5,
+                f"{name}: the loaded prepared volume is not finite or empty")
+        require(loads[name]["brain_voxels"] > 0.05 * vol.numel(), f"{name}: empty brain mask")
+        if name == "Brats21":
+            require(loads[name]["seg_voxels"] > 0, "Brats21: the lesion segmentation was lost")
+    checks = {name: (rec.pop("files") == rec.pop("want_files"), rec.pop("rows"))
+              for name, rec in runs.items()}
+    emit({"phase": "prepare_full_size", "nvidia_smi": nvidia_smi(),
+          "inputs": {"IXI": {"subjects": PREP_SUBJECTS["IXI"], "shape": PREP_IXI[0],
+                             "spacing_mm": PREP_IXI[1], "skull": True, "bias": True},
+                     "Brats21": {"subjects": PREP_SUBJECTS["Brats21"],
+                                 "shape": PREP_BRATS[0], "spacing_mm": PREP_BRATS[1],
+                                 "seg": True},
+                     "atlas": {"shape": PREP_BRATS[0], "spacing_mm": PREP_BRATS[1]},
+                     "made_s": make_s},
+          "cli": runs, "card_vs_cpu": {"subject": row["subject"], "mask_equal": mask_equal,
+                                       "vol_max_rel_err": vol_err, "tol": TOL_PREPARE_REL,
+                                       "cpu_s": cpu_s, "shape": list(card_vol.shape)},
+          "datamodule_load": loads})
+    for name, (files_ok, _) in checks.items():
+        require(files_ok, f"prepare_cli {name}: unexpected files")
+    for name, rec in runs.items():
+        for first, last in rec["reg_mse_first_last"]:
+            require(last < first, f"{name}: registration raised the MSE ({first} -> {last})")
+    require(mask_equal, "prepared brain mask: card and CPU differ")
+    require(vol_err <= TOL_PREPARE_REL, f"prepared volume card vs CPU {vol_err}")
+
+
 FILES_RAW_SHAPE = (196, 198, 104)
 DDIM_RELOAD_STEPS = 5
 FILES_SETS = ("Brats21", "MSLUB")
@@ -2173,6 +2634,12 @@ def run_phases(gen, work: Path) -> int:
     with paused(gen):
         pd_eval_launches, pd_train_launches = phase_patched_full_size()
     new_phases_s = time.perf_counter() - t_new
+    t_var = time.perf_counter()
+    phase_variants_correctness()
+    with paused(gen):
+        var_launches = phase_variants_full_size()
+        phase_prepare_full_size(work)
+    variants_s = time.perf_counter() - t_var
     files = phase_run_from_files(gen, work)
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
     for at, key_ in (("at_train_shape", "mma_train"), ("at_pddpm_eval_shape", "mma_pddpm"),
@@ -2204,12 +2671,15 @@ def run_phases(gen, work: Path) -> int:
                                    "pddpm_train_step": pd_train_launches[name],
                                    "pddpm_fit_epoch": files["pddpm_fit_epoch"][name],
                                    "pddpm_eval_from_files": files["pddpm_eval_from_files"][name],
-                                   "ddim_eval_from_files": files["ddim_eval_from_files"][name]}
+                                   "ddim_eval_from_files": files["ddim_eval_from_files"][name],
+                                   **{path: counts[name] for path, counts in
+                                      var_launches.items()}}
     for rec in (k3_cluster, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
         "attention_fwd_scalar"]
     emit({"phase": "timing", "iterative_and_patched_phases_s": new_phases_s,
+          "variants_and_prepare_phases_s": variants_s,
           "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"]})
     emit({"kernels": [k1, k2_mma, k2_scalar, k3_cluster, k3_two_pass]})
     print(nvidia_smi(), flush=True)

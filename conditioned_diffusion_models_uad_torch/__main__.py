@@ -19,14 +19,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 USAGE = """usage: python -m conditioned_diffusion_models_uad_torch experiment=cDDPM/<name> [key=value ...]
 
 experiments: cDDPM/DDPM_cond_spark_2D (north-star) | cDDPM/DDPM | cDDPM/test
-             | cDDPM/Spark_2D_pretrain (SparK pretraining of the encoder; then
-             cDDPM/DDPM_cond_spark_2D pretrained_encoder=<that run's dir>)
-             (cDDPM/DDPM_patched is not ported)
+             | cDDPM/DDPM_patched (pDDPM) | cDDPM/Spark_2D_pretrain (SparK
+             pretraining of the encoder; then cDDPM/DDPM_cond_spark_2D
+             pretrained_encoder=<that run's dir>)
 overrides:   dotted keys with YAML-typed values, e.g.
              trainer.max_epochs=100 'model.step_ensemble=[250,500,750]'
              only_eval=true load_checkpoint=<run-dir> datamodule.mode=t2
+             model.reco_mode=ddim|ancestral model.sampling_steps=50
+             model.spatial_transformer=true (cross-attention conditioning)
+             model.film_fold=true (with model.norm_precision=compute)
+             model.dropout_unet=0.1 trainer.aug_full=true
              device=cpu (default: the CUDA card)
-env:         DATA_DIR, LOG_DIR (or put them in environment.env)"""
+env:         DATA_DIR, LOG_DIR (or put them in environment.env)
+raw data:    python -m conditioned_diffusion_models_uad_torch.data.prepare_cli
+             --dataset IXI|Brats21|MSLUB --input <raw dir> --output <dir>
+             [--atlas <nii>] [--device cpu]"""
 
 
 def main(argv=None):

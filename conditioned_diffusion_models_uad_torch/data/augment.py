@@ -1,27 +1,41 @@
-"""Intensity augmentations for slice batches (counterpart of
-``conditioned_diffusion_models_uad_tpu/data/augment.py`` :23-97, 202-216).
+"""Augmentations for slice batches (counterpart of
+``conditioned_diffusion_models_uad_tpu/data/augment.py``).
 
 The ``aug_intensity`` policy the flagship cDDPM trains with: random gamma
 (p = .5), a bias field of order 3 (p = .25), a 9-tap separable Gaussian blur
 with edge padding (p = .25) and k-space ghosting (p = .5), each gated per
-sample and applied to the whole batch [B, H, W, 1] on its device.
+sample and applied to the whole batch [B, H, W, 1] on its device. The full
+set (``trainer.aug_full``) puts the spatial families before it — a flip of W
+(p = .5), a random affine (p = .25) and an elastic deformation (p = .25),
+the image warped bilinearly and the brain mask by its nearest voxel through
+the same transform — and Gaussian noise (p = .5) and k-space motion
+(p = .1) after it.
 
-Random draws are explicit: ``draw_aug_intensity`` makes the gates and the
-per-sample parameters from a ``torch.Generator``, and ``aug_intensity_apply``
-applies them, so a test can hand both packages the same draws. The spatial,
-noise and motion families of ``full_augment_batch`` are not ported yet.
+Random draws are explicit: ``draw_aug_intensity`` / ``draw_aug_full`` make
+the gates and the per-sample parameters from a ``torch.Generator``, and
+``aug_intensity_apply`` / ``full_augment_apply`` apply them, so a test can
+hand both packages the same draws.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
-GATE_P = {"gamma": 0.5, "bias": 0.25, "blur": 0.25, "ghost": 0.5}
+from ..ops.interp import map_coordinates, resize
+
+GATE_P = {"gamma": 0.5, "bias": 0.25, "blur": 0.25, "ghost": 0.5,
+          "flip": 0.5, "affine": 0.25, "elastic": 0.25, "noise": 0.5, "motion": 0.1}
 BIAS_ORDER = 3
 BLUR_MAX_STD = 2.0
 BLUR_KSIZE = 9
 GHOSTS = (4, 10)
+AFFINE_MAX_DEG, AFFINE_SCALE, AFFINE_MAX_SHIFT = 10.0, 0.1, 5.0
+ELASTIC_GRID, ELASTIC_MAX_DISP = 4, 7.5
+NOISE_MAX_STD = 0.1
+MOTION_TRANSFORMS, MOTION_MAX_SHIFT = 3, 4.0
 
 
 def n_bias_coeffs(order: int = BIAS_ORDER) -> int:
@@ -44,8 +58,36 @@ class AugDraws:
     ghost_along_h: torch.Tensor  # [B] bool
 
     def to(self, device) -> "AugDraws":
-        return AugDraws(**{f.name: getattr(self, f.name).to(device)
-                           for f in dataclasses.fields(self)})
+        return _to(self, device)
+
+
+def _to(draws, device):
+    return type(draws)(**{f.name: getattr(draws, f.name).to(device)
+                          for f in dataclasses.fields(draws)})
+
+
+@dataclasses.dataclass(frozen=True)
+class FullAugDraws:
+    """The draws of the full set: the spatial families', the intensity
+    policy's and noise's and motion's, each with its gate [B] bool."""
+
+    flip_gate: torch.Tensor
+    affine_gate: torch.Tensor
+    affine_deg: torch.Tensor  # [B] U(-10, 10) degrees
+    affine_scale: torch.Tensor  # [B] U(-0.1, 0.1), the scale is 1 + it
+    affine_shift: torch.Tensor  # [B, 2] U(-5, 5) pixels (y, x)
+    elastic_gate: torch.Tensor
+    elastic_disp: torch.Tensor  # [B, 2, 4, 4] U(-7.5, 7.5) pixels
+    intensity: AugDraws
+    noise_gate: torch.Tensor
+    noise_std: torch.Tensor  # [B] U(0, 0.1)
+    noise: torch.Tensor  # [B, H, W, 1] standard normal
+    motion_gate: torch.Tensor
+    motion_shifts: torch.Tensor  # [B, 3, 2] U(-4, 4) pixels
+    motion_weights: torch.Tensor  # [B, 4] Dirichlet(1, 1, 1, 1)
+
+    def to(self, device) -> "FullAugDraws":
+        return _to(self, device)
 
 
 def draw_aug_intensity(generator: torch.Generator, b: int) -> AugDraws:
@@ -69,6 +111,52 @@ def draw_aug_intensity(generator: torch.Generator, b: int) -> AugDraws:
         ghost_intensity=uniform((b,), 0.5, 1.0),
         ghost_along_h=torch.rand((b,), generator=generator, device=dev) < 0.5,
     )
+
+
+def draw_aug_full(generator: torch.Generator, b: int, h: int, w: int) -> FullAugDraws:
+    """The full set's draws for ``b`` samples of ``h`` x ``w``, on the
+    generator's device. The Dirichlet weights are normalised Exp(1) draws,
+    -log(U)."""
+    dev = generator.device
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * rand(shape)
+
+    def gate(name):
+        return rand((b,)) < GATE_P[name]
+
+    flip_gate = gate("flip")
+    affine_gate = gate("affine")
+    affine = (uniform((b,), -AFFINE_MAX_DEG, AFFINE_MAX_DEG),
+              uniform((b,), -AFFINE_SCALE, AFFINE_SCALE),
+              uniform((b, 2), -AFFINE_MAX_SHIFT, AFFINE_MAX_SHIFT))
+    elastic_gate = gate("elastic")
+    disp = uniform((b, 2, ELASTIC_GRID, ELASTIC_GRID), -ELASTIC_MAX_DISP, ELASTIC_MAX_DISP)
+    intensity = draw_aug_intensity(generator, b)
+    noise_gate = gate("noise")
+    noise_std = uniform((b,), 0.0, NOISE_MAX_STD)
+    noise = torch.randn((b, h, w, 1), generator=generator, device=dev)
+    motion_gate = gate("motion")
+    shifts = uniform((b, MOTION_TRANSFORMS, 2), -MOTION_MAX_SHIFT, MOTION_MAX_SHIFT)
+    e = -torch.log(1.0 - rand((b, MOTION_TRANSFORMS + 1)))  # U in (0, 1]
+    return FullAugDraws(flip_gate, affine_gate, *affine, elastic_gate, disp, intensity,
+                        noise_gate, noise_std, noise, motion_gate, shifts,
+                        e / e.sum(dim=1, keepdim=True))
+
+
+def draw_aug(generator: torch.Generator, b: int, hw, augment):
+    """A step's augmentation draws: None for ``augment`` False/None, the
+    intensity policy's for True or 'intensity', the full set's for 'full'."""
+    if not augment:
+        return None
+    if augment == "full":
+        return draw_aug_full(generator, b, *hw)
+    if augment is True or augment == "intensity":
+        return draw_aug_intensity(generator, b)
+    raise ValueError(f"augment={augment!r}: one of False, True, 'intensity', 'full'")
 
 
 def apply_gamma(x: torch.Tensor, log_gamma: torch.Tensor) -> torch.Tensor:
@@ -154,3 +242,91 @@ def aug_intensity_apply(x: torch.Tensor, draws: AugDraws) -> torch.Tensor:
     x = gated(draws.ghost_gate, apply_ghosting(x, draws.ghost_num, draws.ghost_intensity,
                                                draws.ghost_along_h), x)
     return x
+
+
+def apply_noise(x: torch.Tensor, std: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """x + std·noise, std [B] per sample."""
+    return x + std[:, None, None, None] * noise
+
+
+def apply_motion(x: torch.Tensor, shifts: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """k-space motion: the spectrum as a weighted mix of the image and
+    ``shifts.shape[1]`` shifted copies of it (each shift a phase ramp),
+    weights [B, T + 1], shifts [B, T, 2] (y, x) in pixels."""
+    b, h, w, _ = x.shape
+    dev = x.device
+    fy = torch.fft.fftfreq(h, device=dev)[:, None]
+    fx = torch.fft.fftfreq(w, device=dev)[None, :]
+    spect = torch.fft.fft2(x[..., 0])
+    acc = weights[:, 0, None, None] * spect
+    for t in range(shifts.shape[1]):
+        phase = fy * shifts[:, t, 0, None, None] + fx * shifts[:, t, 1, None, None]
+        ramp = torch.exp(torch.complex(torch.zeros_like(phase), -2.0 * math.pi * phase))
+        acc = acc + weights[:, t + 1, None, None] * spect * ramp
+    return torch.fft.ifft2(acc).real[..., None]
+
+
+def affine_coords(deg: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                  h: int, w: int) -> torch.Tensor:
+    """Source positions [B, 2, H, W] of a rotation by ``deg`` about the
+    centre, a scale of 1 + ``scale`` and a shift [B, 2] (y, x)."""
+    dev = deg.device
+    ang = (deg * math.pi / 180)[:, None, None]
+    sc = (1.0 + scale)[:, None, None]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w) - cy
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w) - cx
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    src_y = (cos * yy - sin * xx) / sc + cy + shift[:, 0, None, None]
+    src_x = (sin * yy + cos * xx) / sc + cx + shift[:, 1, None, None]
+    return torch.stack([src_y, src_x], dim=1)
+
+
+def elastic_coords(disp: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Source positions [B, 2, H, W]: the identity plus the coarse
+    displacement grid [B, 2, g, g] resized to H x W by ``jax.image``'s cubic
+    (Keys a = -0.5, half-pixel centres)."""
+    b = disp.shape[0]
+    field = resize(disp, (b, 2, h, w), "cubic")
+    yy = torch.arange(h, dtype=torch.float32, device=disp.device)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=disp.device)[None, :].expand(h, w)
+    return torch.stack([yy + field[:, 0], xx + field[:, 1]], dim=1)
+
+
+def _warp_gated(gate, coords, vol, mask):
+    """vol bilinearly and mask by its nearest voxel at ``coords`` where
+    ``gate``; mode 'nearest' at the edges."""
+    g = gate[:, None, None, None]
+    vol = torch.where(g, map_coordinates(vol[..., 0], coords, 1)[..., None], vol)
+    if mask is not None:
+        mask = torch.where(g, map_coordinates(mask[..., 0], coords, 0)[..., None], mask)
+    return vol, mask
+
+
+def spatial_augment_apply(vol: torch.Tensor, mask: Optional[torch.Tensor],
+                          draws: FullAugDraws):
+    """Flip of W, then the affine, then the elastic warp, each where its gate
+    is on, on the image and (when given) the mask alike. Returns (vol, mask)."""
+    _, h, w, _ = vol.shape
+    flip = draws.flip_gate[:, None, None, None]
+    vol = torch.where(flip, torch.flip(vol, dims=[2]), vol)
+    if mask is not None:
+        mask = torch.where(flip, torch.flip(mask, dims=[2]), mask)
+    coords = affine_coords(draws.affine_deg, draws.affine_scale, draws.affine_shift, h, w)
+    vol, mask = _warp_gated(draws.affine_gate, coords, vol, mask)
+    coords = elastic_coords(draws.elastic_disp, h, w)
+    return _warp_gated(draws.elastic_gate, coords, vol, mask)
+
+
+def full_augment_apply(vol: torch.Tensor, mask: Optional[torch.Tensor],
+                       draws: FullAugDraws):
+    """The full set on a slice batch [B, H, W, 1] and its mask: the spatial
+    families on both, then the intensity policy, noise and motion on the
+    image. Returns (vol, mask)."""
+    vol, mask = spatial_augment_apply(vol, mask, draws)
+    vol = aug_intensity_apply(vol, draws.intensity)
+    g = draws.noise_gate[:, None, None, None]
+    vol = torch.where(g, apply_noise(vol, draws.noise_std, draws.noise), vol)
+    g = draws.motion_gate[:, None, None, None]
+    vol = torch.where(g, apply_motion(vol, draws.motion_shifts, draws.motion_weights), vol)
+    return vol, mask

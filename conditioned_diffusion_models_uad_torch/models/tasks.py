@@ -17,21 +17,22 @@ from which it draws them (``draw_seeds``):
   ``noise_impl='table'``: the task splits each volume's key chain on the host
   as the JAX task does (``utils/prng.py``), and on the hash path turns each
   key into its seed with ``randint``;
-* a ``TrainDraws`` for a training step.
+* a ``TrainDraws`` for a training step, with the UNet's dropout keep masks
+  when ``dropout_unet > 0``.
 SparK takes per-volume keys [G, 2] for a reconstruction (its eval masks,
 bit-equal to that package's) and a ``SparkDraws`` for a training step.
-Not ported yet: UNet dropout in training.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..data.augment import AugDraws, draw_aug_intensity
+from ..data.augment import AugDraws, FullAugDraws, draw_aug
 from ..diffusion import (
     GaussianDiffusionConfig,
     box_to_mask,
@@ -166,13 +167,18 @@ class TrainDraws:
     """The random draws of one training step: t [B] in [0, timesteps), the
     noise draw (one field a step, broadcast over the batch): a simplex seed
     [1] int32 on the hash path, a key [1, 2] (int64 words) under
-    ``noise_impl='table'``; the augmentation draws (None: no augmentation);
-    and for the pDDPM the patch boxes [B, 4] int32 (x0, y0, x1, y1)."""
+    ``noise_impl='table'``; the augmentation draws (None: no augmentation;
+    an ``AugDraws`` for the intensity policy, a ``FullAugDraws`` for the
+    full set); for the pDDPM the patch boxes [B, 4] int32 (x0, y0, x1, y1);
+    and with UNet dropout in training, one bool keep mask a ResBlock
+    ([B, C, H, W] in ``UNetModel.dropout_shapes`` order, the order of
+    flax's dropout sites)."""
 
     t: torch.Tensor
     seed: torch.Tensor
-    aug: Optional[AugDraws] = None
+    aug: Optional[AugDraws | FullAugDraws] = None
     box: Optional[torch.Tensor] = None
+    dropout: Optional[Sequence[torch.Tensor]] = None
 
 
 class DDPMTask(nn.Module):
@@ -189,8 +195,8 @@ class DDPMTask(nn.Module):
     ``loss`` put the encoder's BatchNorm in the mode their ``train`` argument
     asks for during the call and restore the previous mode after it, as the
     JAX task passes ``train`` to each apply, so no result depends on
-    ``nn.Module.train``/``eval``; the UNet has no mode (its dropout in
-    training is not ported)."""
+    ``nn.Module.train``/``eval``; the UNet has no mode: its dropout runs
+    in a training ``loss`` from the draws' keep masks."""
 
     def __init__(self, cfg: DDPMTaskConfig = DDPMTaskConfig(),
                  device: DeviceLike = None, noise_impl: str = "hash"):
@@ -269,12 +275,25 @@ class DDPMTask(nn.Module):
                              generator=generator, dtype=torch.int32,
                              device=generator.device)
 
+    def draw_dropout(self, generator: torch.Generator, b: int):
+        """Keep masks of the UNet's ResBlocks for a batch of ``b``, on the
+        generator's device: uniform < 1 - dropout_unet, as flax's bernoulli
+        draws them, each drawn [B, H, W, C] and returned as its NCHW view."""
+        keep = 1.0 - self.cfg.dropout_unet
+        h, w = self.cfg.image_hw
+        return [(torch.rand((n, hh, ww, c), generator=generator, device=generator.device)
+                 < keep).permute(0, 3, 1, 2)
+                for n, c, hh, ww in self.unet.dropout_shapes(b, h, w)]
+
     def draw_train(self, generator: torch.Generator, b: int, *,
-                   augment: bool = True) -> TrainDraws:
+                   augment=True) -> TrainDraws:
         """One training step's draws for a batch of ``b``, on the generator's
         device: the noise draw (a seed uniform in [0, 2**31 - 1), or a key
-        under table noise), t uniform in [0, timesteps), the aug_intensity
-        draws when ``augment``, and for the pDDPM one patch box a sample."""
+        under table noise), t uniform in [0, timesteps), the augmentation's
+        (``augment``: True for aug_intensity, 'full' for the full set, False
+        for none), for the pDDPM one patch box a sample, and with
+        ``dropout_unet > 0`` the dropout keep masks (a validation ``loss``
+        ignores them)."""
         dev = generator.device
         if self.noise_impl == "table":
             seed = torch.randint(0, 2**32, (1, 2), generator=generator, dtype=torch.int64,
@@ -283,10 +302,11 @@ class DDPMTask(nn.Module):
             seed = torch.randint(0, INT32_MAX, (1,), generator=generator, dtype=torch.int32,
                                  device=dev)
         t = torch.randint(0, self.cfg.timesteps, (b,), generator=generator, device=dev)
-        aug = draw_aug_intensity(generator, b) if augment else None
+        aug = draw_aug(generator, b, self.cfg.image_hw, augment)
         box = (sample_single_box(generator, b, self.cfg.image_hw, self.cfg.patch_hw)
                if self.cfg.patched else None)
-        return TrainDraws(t, seed, aug, box)
+        dropout = self.draw_dropout(generator, b) if self.cfg.dropout_unet > 0 else None
+        return TrainDraws(t, seed, aug, box, dropout)
 
     def _train_noise(self, draw: torch.Tensor, shape) -> torch.Tensor:
         if self.noise_impl == "table":
@@ -299,11 +319,17 @@ class DDPMTask(nn.Module):
         for the pDDPM, with only the draws' boxes noised). Returns (scalar
         loss, {'reco': [B, H, W, 1]}). Training normalises the encoder with
         batch statistics and updates its running ones; validation uses the
-        running ones. Gradients flow to every parameter; augmentation is the
-        caller's (``train/loop.py``)."""
+        running ones. With ``dropout_unet > 0`` training applies the
+        draws' dropout masks (which it needs). Gradients flow to every
+        parameter; augmentation is the caller's (``train/loop.py``)."""
         cfg = self.cfg
+        model = self.unet
         if train and cfg.dropout_unet > 0:
-            raise NotImplementedError("UNet dropout in training is not ported yet")
+            if draws.dropout is None:
+                raise ValueError("UNet dropout in training needs the draws' keep masks "
+                                 "(TrainDraws.dropout, from draw_train)")
+            model = functools.partial(self.unet,
+                                      dropout=[m.to(self.device) for m in draws.dropout])
         x01 = batch["vol"].to(self.device).float()
         cond = self.encode(x01, train=train)
         noise = self._train_noise(draws.seed, tuple(x01.shape))
@@ -312,7 +338,7 @@ class DDPMTask(nn.Module):
             if draws.box is None:
                 raise ValueError("the patched task's draws need boxes (TrainDraws.box)")
             box_mask = box_to_mask(draws.box.to(self.device), *cfg.image_hw)
-        loss, reco = diffusion_call(self.sched, self.gd_cfg, self.unet, x01,
+        loss, reco = diffusion_call(self.sched, self.gd_cfg, model, x01,
                                     t=draws.t.to(self.device), cond=cond, noise=noise,
                                     box_mask=box_mask)
         return loss, {"reco": reco}
@@ -561,10 +587,11 @@ class SparkTaskConfig:
 @dataclasses.dataclass(frozen=True)
 class SparkDraws:
     """The random draws of one SparK training step: the active-site grid
-    [B, f, f] (bool) and the augmentation draws (None: no augmentation)."""
+    [B, f, f] (bool) and the augmentation draws (None: no augmentation; an
+    ``AugDraws`` or a ``FullAugDraws``)."""
 
     active: torch.Tensor
-    aug: Optional[AugDraws] = None
+    aug: Optional[AugDraws | FullAugDraws] = None
 
 
 class SparkTask(nn.Module):
@@ -611,11 +638,12 @@ class SparkTask(nn.Module):
         return random_mask(generator, b, f, self.scfg.len_keep)
 
     def draw_train(self, generator: torch.Generator, b: int, *,
-                   augment: bool = True) -> SparkDraws:
+                   augment=True) -> SparkDraws:
         """One training step's draws on the generator's device: the active
-        grid, and the aug_intensity draws when ``augment``."""
+        grid, and the augmentation's (``augment``: True for aug_intensity,
+        'full' for the full set, False for none)."""
         active = self.draw_mask(generator, b)
-        return SparkDraws(active, draw_aug_intensity(generator, b) if augment else None)
+        return SparkDraws(active, draw_aug(generator, b, self.cfg.image_hw, augment))
 
     def loss(self, batch: dict, draws: SparkDraws, *, train: bool = True):
         """The masked reconstruction objective (reference

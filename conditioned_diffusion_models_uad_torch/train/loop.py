@@ -3,7 +3,8 @@
 src/train.py:31-250 and the Lightning Trainer semantics it relies on).
 
 One step gathers the batch's slices from volumes already on the device,
-applies the intensity augmentation, evaluates the task's ``loss`` with its
+applies the intensity augmentation (or, with ``aug_full``, the full set to
+the slices and their masks), evaluates the task's ``loss`` with its
 BatchNorm in training mode, back-propagates and takes an Adam (AdamW for
 SparK) step. Random draws come in as the task's draws (``TrainDraws`` from
 ``DDPMTask.draw_train``, with the patch boxes of the pDDPM; ``SparkDraws``
@@ -18,7 +19,6 @@ every ``check_val_every_n_epoch`` epochs with best/last checkpoints,
 rows. Every random draw of the fit goes through ``task.draw_train``: epoch
 e's from a generator on the task's device seeded from (seed, fold, e),
 validation's from one seeded from (seed, fold) afresh at each validation.
-``full_augment_batch`` (``aug_full``) is not ported.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.augment import aug_intensity_apply
+from ..data.augment import FullAugDraws, aug_intensity_apply, full_augment_apply
 from ..models.tasks import TrainDraws
 from .checkpoint import FoldCheckpointer
 
@@ -52,17 +52,21 @@ def make_optimizer(task) -> torch.optim.Optimizer:
 
 def gathered_batch(data: Data, vol_idx, slice_idx, aug=None) -> dict:
     """Slices ``vols[vol_idx, :, :, slice_idx]`` as a batch {'vol', 'mask'}
-    of [B, H, W, 1], with the intensity augmentation applied to 'vol' when
-    ``aug`` (an ``AugDraws``) is given."""
+    of [B, H, W, 1]. ``aug``: an ``AugDraws`` applies the intensity policy to
+    'vol'; a ``FullAugDraws`` applies the full set to 'vol' and 'mask'
+    together (the spatial families warp both)."""
     vols, masks = data
     vi = torch.as_tensor(vol_idx, device=vols.device).long()
     si = torch.as_tensor(slice_idx, device=vols.device).long()
     v = vols[vi, :, :, si][..., None].float()
-    if aug is not None:
+    m = None if masks is None else masks[vi, :, :, si][..., None]
+    if isinstance(aug, FullAugDraws):
+        v, m = full_augment_apply(v, m, aug.to(v.device))
+    elif aug is not None:
         v = aug_intensity_apply(v, aug.to(v.device))
     batch = {"vol": v}
-    if masks is not None:
-        batch["mask"] = masks[vi, :, :, si][..., None]
+    if m is not None:
+        batch["mask"] = m
     return batch
 
 
@@ -89,10 +93,10 @@ def val_step(task, data: Data, vol_idx, slice_idx, draws: TrainDraws) -> torch.T
 
 def train_epoch(task, opt: torch.optim.Optimizer, data: Data,
                 vol_idx_all: Sequence, slice_idx_all: Sequence,
-                generator: torch.Generator, augment: bool = True) -> torch.Tensor:
+                generator: torch.Generator, augment=True) -> torch.Tensor:
     """``train_step`` over the rows of [S, B] index arrays, with each step's
-    draws (aug_intensity when ``augment``) taken from ``generator``. Returns
-    the [S] losses."""
+    draws taken from ``generator`` (``augment``: True for aug_intensity,
+    'full' for the full set, False for none). Returns the [S] losses."""
     losses = []
     for vi, si in zip(vol_idx_all, slice_idx_all):
         draws = task.draw_train(generator, len(vi), augment=augment)
@@ -134,9 +138,6 @@ class Trainer:
     at ``fit`` time are the starting point."""
 
     def __init__(self, task, cfg: TrainerConfig, logger=None):
-        if cfg.aug_full:
-            raise NotImplementedError(
-                "trainer.aug_full (full_augment_batch) is not ported yet")
         self.task = task
         self.cfg = cfg
         self.logger = logger
@@ -229,8 +230,9 @@ class Trainer:
                 raise ValueError("empty training source")
             gen.manual_seed(_seed(cfg.seed, fold, 0, epoch))
             t0 = time.perf_counter()
-            losses = train_epoch(task, self.opt, data, vi_all, si_all, gen,
-                                 augment=cfg.aug_intensity)
+            # aug_full takes precedence over aug_intensity, as in the JAX package
+            augment = "full" if cfg.aug_full else cfg.aug_intensity
+            losses = train_epoch(task, self.opt, data, vi_all, si_all, gen, augment=augment)
             self._step += len(vi_all)
             loss_host = losses.double().cpu().numpy()  # one fetch an epoch
             self.timings["epoch_s"].append(time.perf_counter() - t0)

@@ -12,6 +12,8 @@ and ``convert_reference_resnet_state_dict`` (``utils/convert_torch.py``):
             kh and kw (flax's ConvTranspose does not flip its kernel)
     attention qkv flax Dense [C, 3C] (qkv-major) -> Conv1d [3C, C, 1]
             (head-major), proj_out Dense [C, C] -> Conv1d [C, C, 1]
+    spatial transformer proj_in/proj_out Dense [C, C] -> Conv2d [C, C, 1, 1];
+            ff_in/ff_out -> ff.net.0.proj/ff.net.2; LayerNorm scale -> weight
 
 Every map is a linear re-indexing, so a tree shaped like the params
 (gradients, Adam moments) converts the same way (``convert_jax_ddpm_params``,
@@ -69,7 +71,14 @@ def convert_jax_unet_params(params: dict, cfg: UNetConfig) -> Dict[str, torch.Te
         _dense(sd, "label_emb.2", params["label_dense2"])
     _conv(sd, "input_blocks.0.0", params["in_conv"])
 
-    counters = {"res": 0, "attn": 0}
+    counters = {"res": 0, "attn": 0, "down": 0, "up": 0}
+
+    def take(kind, name):
+        """The next auto-numbered flax module of a kind: flax names them
+        ``<Class>_<n>`` in call order."""
+        p = params[f"{name}_{counters[kind]}"]
+        counters[kind] += 1
+        return p
 
     def put_res(prefix, in_ch, out_ch):
         p = params[f"res{counters['res']}"]
@@ -82,9 +91,42 @@ def convert_jax_unet_params(params: dict, cfg: UNetConfig) -> Dict[str, torch.Te
         if in_ch != out_ch:
             _conv(sd, f"{prefix}.skip_connection", p["skip"])
 
+    def put_down(prefix, ch):
+        if cfg.resblock_updown:
+            put_res(prefix, ch, ch)
+        elif cfg.conv_resample:
+            _conv(sd, f"{prefix}.op", take("down", "Downsample")["Conv_0"])
+
+    def put_up(prefix, ch):
+        if cfg.resblock_updown:
+            put_res(prefix, ch, ch)
+        elif cfg.conv_resample:
+            _conv(sd, f"{prefix}.conv", take("up", "Upsample")["Conv_0"])
+
+    def put_1x1(key, p):
+        sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+    def put_transformer(prefix, p):
+        _gn(sd, f"{prefix}.norm", p["GroupNorm32_0"])
+        put_1x1(f"{prefix}.proj_in", p["proj_in"])
+        put_1x1(f"{prefix}.proj_out", p["proj_out"])
+        for i in range(cfg.transformer_depth):
+            blk, key = p[f"block{i}"], f"{prefix}.transformer_blocks.{i}"
+            for j in (1, 2, 3):
+                _bn(sd, f"{key}.norm{j}", blk[f"norm{j}"])
+            for a in ("attn1", "attn2"):
+                for w in ("to_q", "to_k", "to_v"):
+                    sd[f"{key}.{a}.{w}.weight"] = _t(np.asarray(blk[a][w]["kernel"]).T)
+                _dense(sd, f"{key}.{a}.to_out.0", blk[a]["to_out"])
+            _dense(sd, f"{key}.ff.net.0.proj", blk["ff_in"])
+            _dense(sd, f"{key}.ff.net.2", blk["ff_out"])
+
     def put_attn(prefix, ch):
-        p = params[f"AttentionBlock_{counters['attn']}"]
-        counters["attn"] += 1
+        if cfg.spatial_transformer:
+            put_transformer(prefix, take("attn", "SpatialTransformer"))
+            return
+        p = take("attn", "AttentionBlock")
         heads = ch // cfg.num_head_channels if cfg.num_head_channels > 0 else cfg.num_heads
         perm = qkv_permutation(ch, heads)
         kernel = np.asarray(p["qkv"]["kernel"], np.float32)  # [C, 3C] qkv-major
@@ -109,7 +151,7 @@ def convert_jax_unet_params(params: dict, cfg: UNetConfig) -> Dict[str, torch.Te
             skip_chs.append(ch)
             ib += 1
         if level != len(cfg.channel_mult) - 1:
-            put_res(f"input_blocks.{ib}.0", ch, ch)
+            put_down(f"input_blocks.{ib}.0", ch)
             skip_chs.append(ch)
             ib += 1
             ds *= 2
@@ -128,7 +170,7 @@ def convert_jax_unet_params(params: dict, cfg: UNetConfig) -> Dict[str, torch.Te
                 put_attn(f"output_blocks.{ob}.{sub}", ch)
                 sub += 1
             if level and i == cfg.num_res_blocks:
-                put_res(f"output_blocks.{ob}.{sub}", ch, ch)
+                put_up(f"output_blocks.{ob}.{sub}", ch)
                 ds //= 2
             ob += 1
 

@@ -120,8 +120,10 @@ def test_fast_dev_run_and_no_val_source(tmp_path):
     t.fit(_source(0))
     ck = C.FoldCheckpointer(str(tmp_path / "n"))
     assert ck.exists("last") and not ck.exists("best") and ck.meta["last"]["step"] == 2
-    with pytest.raises(NotImplementedError):
-        _trainer(tmp_path, aug_full=True)
+    # trainer.aug_full runs (it raised before the full set was ported)
+    t = _trainer(tmp_path / "full", max_epochs=1, fast_dev_run=True, aug_full=True)
+    t.fit(_source(0))
+    assert t.timings["steps"] == 1
 
 
 def _rows(path):

@@ -23,6 +23,7 @@ entry, 1e-8 on average and 1e-4 of entries more than lr/10 apart (measured
 second forward, which moves its loss by 1.7e-5 and its update more widely:
 4*lr, 2e-6, 2e-2 (measured 2.9e-4, 6.4e-7, 9.1e-3), loss and running
 statistics 1e-4 and 5e-4 (1.7e-5, 8.0e-5)."""
+import dataclasses
 import functools
 
 import jax
@@ -339,10 +340,26 @@ def test_diffusion_call_draws_t_from_a_generator():
 
 
 def test_dropout_in_training_is_not_ported():
-    task = DDPMTask(DDPMTaskConfig(**{**TINY, "dropout_unet": 0.1}), device="cpu")
+    """UNet dropout in training, which raised before it was ported, runs
+    from the draws' keep masks: one per ResBlock at its output shape, about
+    1 - p of them kept; a training loss needs them, validation ignores them
+    (tests/test_torch_unet_variants.py holds the masks against flax's)."""
+    task = randomize_(DDPMTask(DDPMTaskConfig(**{**TINY, "dropout_unet": 0.1}),
+                               device="cpu"), 21)
     draws = task.draw_train(torch.Generator().manual_seed(0), B)
-    with pytest.raises(NotImplementedError):
-        task.loss({"vol": torch.from_numpy(_slices())}, draws)
+    shapes = task.unet.dropout_shapes(B, 32, 32)
+    assert [tuple(m.shape) for m in draws.dropout] == shapes
+    kept = torch.cat([m.reshape(-1) for m in draws.dropout]).float().mean().item()
+    assert abs(kept - 0.9) < 0.01
+    batch = {"vol": torch.from_numpy(_slices())}
+    loss, _ = task.loss(batch, draws)
+    everything = dataclasses.replace(draws, dropout=[torch.ones_like(m) for m in draws.dropout])
+    assert torch.isfinite(loss) and loss.item() != task.loss(batch, everything)[0].item()
+    with pytest.raises(ValueError):
+        task.loss(batch, dataclasses.replace(draws, dropout=None))
+    val = task.loss(batch, draws, train=False)[0]
+    assert torch.equal(val, task.loss(batch, dataclasses.replace(draws, dropout=None),
+                                      train=False)[0])
 
 
 def _jax_encoder_choices(jtask, v, x):

@@ -125,7 +125,12 @@ def test_groupnorm32_matches_jax(f32_apply):
 
 
 def test_unet_unported_options_raise():
-    for kw in (dict(film_fold=True), dict(spatial_transformer=True),
-               dict(resblock_updown=False)):
-        with pytest.raises(NotImplementedError):
-            UNetModel(UNetConfig(**SMALL, **kw))
+    """The options that raised before they were ported now build and run
+    (tests/test_torch_unet_variants.py holds them against the JAX UNet)."""
+    x, t, c = _inputs()
+    for kw in (dict(film_fold=True, norm_precision="compute"), dict(spatial_transformer=True),
+               dict(resblock_updown=False), dict(use_scale_shift_norm=False)):
+        model = UNetModel(UNetConfig(**SMALL, **kw)).eval()
+        with torch.no_grad():
+            out = model(torch.from_numpy(x), torch.from_numpy(t).long(), torch.from_numpy(c))
+        assert out.shape == x.shape and torch.isfinite(out).all()
