@@ -45,8 +45,15 @@ then data parallelism over ``torch.distributed`` with two gloo ranks on the
 one card (``ddp_correctness``: float32 DDP steps of the cDDPM and SparK held
 to one process with the ranks' choices replayed, and a 1-rank NCCL group
 bit-equal to plain steps; ``ddp_full_size``: the bf16 batch-32 step, 16 a
-rank; ``ddp_eval``: an eval group of 2 volumes, one a rank, against one
-process). Each path is driven with the
+rank; ``ddp_eval``: an eval group of 2 volumes, one a rank, which must equal
+one process's group bit for bit). Eval runs each volume through the model in
+a call of its own, so ``eval_full_size`` also requires one and two volumes a
+call to give equal counts and packed rows, and times that dispatch beside
+the group stacked into one call (as do ``iterative_full_size`` and
+``patched_full_size``); ``ddpm_f32_full_size`` drives the unconditional DDPM
+baseline (experiment cDDPM/DDPM, float32) at full width: a batch-32 train
+step and an eval group, both through K2's float32 kernel. Each path is
+driven with the
 kernels' launch counters set to 0 just before it and read just after. Every
 phase prints one JSON line (all of them also go to
 ``chiprun_out/chip_smoke.jsonl``); any failed check raises, so the process
@@ -236,17 +243,19 @@ def phase_k1():
 
     g = torch.Generator().manual_seed(0)
     recs = []
-    # the reconstruction's 6 fields, the train step's one, a ragged shape, a
-    # sampler step's 2 (one a volume) and a pDDPM eval group's 8 (4 boxes x 2)
-    for shape, n in (((96, 96), 6), ((96, 96), 1), ((37, 130), 3), ((96, 96), 2),
-                     ((96, 96), 8)):
+    # the reconstruction's 6 fields (2 volumes x 3 members through the task's
+    # group entry), the train step's and a sampler step's one, a ragged
+    # shape, an eval volume's 3 (a call a volume) and a pDDPM volume's 4 boxes
+    for shape, n in (((96, 96), 6), ((96, 96), 1), ((37, 130), 3), ((96, 96), 3),
+                     ((96, 96), 4)):
         seeds = torch.randint(0, 2**31 - 1, (n,), generator=g, dtype=torch.int32)
         seeds[0] = 2**31 - 2
         rec = k1_record(seeds.cuda(), shape)
         require(rec["max_abs_err"] <= TOL_K1, f"K1 {shape} err {rec['max_abs_err']}")
         recs.append(rec)
     emit({"phase": "k1", "results": recs})
-    for at, rec in (("at_sampler_step_shape", recs[3]), ("at_pddpm_group_shape", recs[4])):
+    for at, rec in (("at_train_and_sampler_step_shape", recs[1]),
+                    ("at_eval_volume_shape", recs[3]), ("at_pddpm_volume_shape", recs[4])):
         recs[0][at] = {key: rec[key] for key in ("shape", "max_abs_err", "ms", "graph_ms",
                                                   "plain_ms", "bound_ms", "bound_by")}
     return recs[0]
@@ -301,7 +310,10 @@ def phase_k2():
     variant its dispatch took, and it must be the one ``kernel_for`` names,
     with the variant's own output), then the variant alone against the plain
     version; and the scalar kernel at the flagship bf16 shape, called
-    directly, to set beside the tensor-core kernel."""
+    directly, to set beside the tensor-core kernel. The float32 rows at
+    [32, …] and [56, …] are the unconditional DDPM baseline's (DDPM.yaml,
+    float32): a batch-32 train step and one eval volume (50 slices padded
+    to 56, no noise ensemble)."""
     import torch
 
     from conditioned_diffusion_models_uad_torch.ops import attention as A
@@ -312,13 +324,15 @@ def phase_k2():
     cases = [
         ("mma", (576, 576, 3, 4, 64), torch.bfloat16, True),     # eval, batch 576
         ("mma_train", (32, 576, 3, 4, 64), torch.bfloat16, True),  # train, batch 32
-        ("mma_pddpm", (448, 576, 3, 4, 64), torch.bfloat16, True),  # pDDPM eval group
-        ("mma_iterative", (112, 576, 3, 4, 64), torch.bfloat16, True),  # a sampler step
+        ("mma_pddpm", (224, 576, 3, 4, 64), torch.bfloat16, True),  # pDDPM eval volume
+        ("mma_iterative", (56, 576, 3, 4, 64), torch.bfloat16, True),  # a volume's step
         (None, (3, 100, 3, 2, 64), torch.bfloat16, True),        # ragged S
         (None, (2, 64, 3, 2, 32), torch.bfloat16, True),         # D = 32
         (None, (2, 600, 3, 2, 64), torch.bfloat16, True),        # S beyond the mma limit
         ("scalar_bf16", (576, 576, 3, 4, 64), torch.bfloat16, False),
         ("scalar", (12, 576, 3, 4, 64), torch.float32, True),    # slice_correctness
+        ("scalar_ddpm_train", (32, 576, 3, 4, 64), torch.float32, True),  # DDPM.yaml step
+        ("scalar_ddpm_eval", (56, 576, 3, 4, 64), torch.float32, True),   # its eval volume
         (None, (3, 100, 3, 2, 64), torch.float32, True),
         (None, (2, 64, 3, 2, 32), torch.float32, True),
     ]
@@ -943,6 +957,21 @@ def phase_eval_correctness():
     require(worst["rel"] <= TOL_EVAL_REL, f"eval float rows card/CPU: {worst}")
 
 
+@contextlib.contextmanager
+def group_stack_layout(recon, stacked: bool = True):
+    """``recon``, with ``stacked`` in the dispatch before per-volume calls: a
+    group's stacked slices through the task's group entry in one call (the
+    UNet at E * G * pad rows, one K1 launch a group), to time the per-volume
+    dispatch against it in one run on one card."""
+    if stacked:
+        recon._per_volume = lambda slices, draws, g: recon._reconstruct(slices, draws)
+    try:
+        yield recon
+    finally:
+        if stacked:
+            del recon._per_volume
+
+
 def _eval_protocol(task, recon, cfg, stages):
     """The orchestrated eval protocol: per stage an EvalSession, the stage's
     group loop (``orchestrate.run_stage``: groups of ``volumes_per_call``
@@ -1004,10 +1033,16 @@ def phase_eval_full_size():
     width) and scoring shape: a lesion set (val, then test with the val
     threshold) and a healthy set (IXI, val), four subjects each, two volumes
     a reconstruction call, under the device_fast backends and under the
-    defaults (host). Launch counters are zeroed just before each protocol run
-    and read just after. Then the timings: s per group with and without the
-    scoring, the scoring stages of one volume, a profiled group, and K2 at
-    the eval shape."""
+    defaults (host); then device_fast with one volume a call, whose counts
+    and threshold must equal the two-volume run's (each volume goes through
+    the model in a call of its own, so the layout moves no row), and
+    device_fast with the group's volumes stacked into one model call (the
+    dispatch before per-volume calls, timed beside it). Launch counters are
+    zeroed just before each protocol run and read just after. Then: a group's
+    packed buffer must equal its volumes' buffers scored one a call, bit for
+    bit; the timings, s per group with and without the scoring, per-volume
+    and stacked in turns; the scoring stages of one volume, a profiled group,
+    and K2 at the eval shape (a volume's [168, …])."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1024,16 +1059,18 @@ def phase_eval_full_size():
         for s in subs:  # the loader's pre-upload of the seg (val-stage pooling)
             s["_dev"] = {"seg_orig": torch.as_tensor(s["seg_orig"], device="cuda")}
     n_vol = sum(len(s) for _, _, s in stages)
-    settings = {"device_fast": dict(cc_backend="device", hausdorff_backend="device"),
-                "host": {}}
+    fast = dict(cc_backend="device", hausdorff_backend="device")
+    settings = {"device_fast": (fast, 2, False), "host": ({}, 2, False),
+                "device_fast_vpc1": (fast, 1, False), "device_fast_group_stack": (fast, 2, True)}
     runs = {}
-    for name, backends in settings.items():
-        cfg = EvalConfig(volumes_per_call=2, fused_dispatch=True, **backends)
+    for name, (backends, vpc, stacked) in settings.items():
+        cfg = EvalConfig(volumes_per_call=vpc, fused_dispatch=True, **backends)
         groups = sum(-(-len(s) // cfg.volumes_per_call) for _, _, s in stages)
-        counters = _zero_launches()
-        sessions, wall_s, test_end_ms = _eval_protocol(task, recon, cfg, stages)
-        torch.cuda.synchronize()
-        launches = _read_launches(counters)
+        with group_stack_layout(recon, stacked):
+            counters = _zero_launches()
+            sessions, wall_s, test_end_ms = _eval_protocol(task, recon, cfg, stages)
+            torch.cuda.synchronize()
+            launches = _read_launches(counters)
         les_val, les_test = sessions[("Brats21", "val")], sessions[("Brats21", "test")]
         healthy = sessions[("IXI", "val")].eval_dict
         rows = {st: {k: list(sessions[("Brats21", st)].eval_dict[k]) for k in (
@@ -1066,10 +1103,18 @@ def phase_eval_full_size():
                 f"eval {name}: K1/K2 not launched on every group: {launches}")
         require(launches["attention_fwd_scalar"] == 0,
                 f"eval {name}: bf16 attention slipped onto the scalar K2 kernel")
-    require(runs["device_fast"]["counts"] == runs["host"]["counts"],
-            "eval counts differ between the device_fast and host backends")
-    require(runs["device_fast"]["threshold_total"] == runs["host"]["threshold_total"],
-            "eval val threshold differs between the backends")
+        if not stacked:  # one K1 launch and one UNet call a volume
+            n_calls = sum(-(-len(s) // vpc) * vpc for _, _, s in stages)
+            require(launches["fractal_noise_2d"] == n_calls
+                    and launches["attention_fwd_mma"] == n_calls,
+                    f"eval {name}: {launches} for {n_calls} volume calls")
+    for other in ("host", "device_fast_vpc1"):
+        require(runs["device_fast"]["counts"] == runs[other]["counts"],
+                f"eval counts differ between device_fast and {other}")
+        require(runs["device_fast"]["threshold_total"] == runs[other]["threshold_total"],
+                f"eval val threshold differs between device_fast and {other}")
+    runs["device_fast_group_stack"]["counts_equal_to_per_volume"] = (
+        runs["device_fast_group_stack"]["counts"] == runs["device_fast"]["counts"])
 
     # timings: one val group, scored and not, in turns
     cfg = EvalConfig(volumes_per_call=2, cc_backend="device", hausdorff_backend="device")
@@ -1087,14 +1132,26 @@ def phase_eval_full_size():
         torch.cuda.synchronize()
         return out
 
-    readings = {"scored": [], "reconstruct": []}
-    for key in ("scored", "reconstruct", "reconstruct", "scored"):
-        fn = scored if key == "scored" else reco_only
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(3):
+    # volumes_per_call 1 and 2: the group's packed rows are its volumes'
+    packed_2 = scored()
+    packed_1 = [recon.batch_call_scored(group[j:j + 1], flags, seeds[j:j + 1])[1][0].cpu()
+                for j in range(len(group))]
+    vpc_bit_equal = [bool(torch.equal(packed_2[j], packed_1[j])) for j in range(len(group))]
+    require(all(vpc_bit_equal), f"a group's packed rows differ from its volumes' alone: "
+                                f"{vpc_bit_equal}")
+
+    readings = {k: [] for k in ("scored", "scored_group_stack", "reconstruct",
+                                "reconstruct_group_stack")}
+    for key in ("scored", "scored_group_stack", "scored_group_stack", "scored",
+                "reconstruct", "reconstruct_group_stack", "reconstruct_group_stack",
+                "reconstruct"):
+        fn = scored if key.startswith("scored") else reco_only
+        with group_stack_layout(recon, key.endswith("stack")):
             fn()
-        readings[key].append((time.perf_counter() - t0) / 3)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            readings[key].append((time.perf_counter() - t0) / 3)
     reco0 = reco_only()[0][0]
     t = {k: torch.as_tensor(group[0][k], device="cuda") for k in ("vol_orig", "mask_orig",
                                                                   "seg_orig")}
@@ -1117,7 +1174,7 @@ def phase_eval_full_size():
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
 
     g = torch.Generator().manual_seed(8)
-    k2_eval = k2_record(torch.randn((336, 576, 3, 4, 64), generator=g).to(torch.bfloat16).cuda(),
+    k2_eval = k2_record(torch.randn((168, 576, 3, 4, 64), generator=g).to(torch.bfloat16).cuda(),
                         "mma")
     require(k2_eval["max_abs_err"] <= k2_eval["tol"], f"K2 at the eval shape: {k2_eval}")
     emit({"phase": "eval_full_size", "nvidia_smi": nvidia_smi(),
@@ -1127,7 +1184,12 @@ def phase_eval_full_size():
           "runs": runs,
           "s_per_group_reconstruct_score": float(np.mean(readings["scored"])),
           "s_per_group_reconstruct": float(np.mean(readings["reconstruct"])),
+          "s_per_group_reconstruct_score_group_stack":
+              float(np.mean(readings["scored_group_stack"])),
+          "s_per_group_reconstruct_group_stack":
+              float(np.mean(readings["reconstruct_group_stack"])),
           "s_per_group_readings": readings,
+          "vpc1_vs_vpc2_packed_bit_equal": vpc_bit_equal,
           "scoring_ms_per_volume": stage_ms,
           "profiled_group_wall_ms": wall_ms, "profiled_group_kernel_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -1245,7 +1307,7 @@ def phase_train_correctness():
 
 
 def _train_step_numbers(task, b, seed, profile_file, n_learn=50, reps=20, augment=True,
-                        n_prof=3):
+                        n_prof=3, n_parts=5):
     """The train step of ``task`` at batch ``b`` on the card, slices gathered
     from random volumes with aug_intensity (``augment='full'``: the full set,
     on the slices and their masks): 3 warm-up steps, then s/step over
@@ -1291,7 +1353,6 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50, reps=20, augmen
 
     # layer times: the train step's pieces between CUDA events
     parts = {"gather_augment": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    n_parts = 5
     for _ in range(n_parts):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         draws = task.draw_train(g, b, augment=augment)
@@ -1550,13 +1611,14 @@ def phase_iterative_correctness():
 def phase_iterative_full_size():
     """The iterative reconstruction at the flagship width (DDPMTaskConfig(),
     bf16) on one eval group of 2 volumes at EVAL_SHAPE (depth 50, padded to
-    56: 112 slices a UNet call) through ``VolumeReconstructor.batch_call``
-    with the orchestrator's keys: DDIM with 50 steps from t = 500 (timed with
-    the launch counters; the idle share from a 5-step call under the
-    profiler),
-    then the ancestral chain truncated at t = 50 (the full 500-step chain is
-    cut to 50 steps for time; the width is not cut). Returns the launches of
-    each mode's call."""
+    56: a chain a volume, 56 slices a UNet call) through
+    ``VolumeReconstructor.batch_call`` with the orchestrator's keys: DDIM
+    with 50 steps from t = 500 (timed with the launch counters, then against
+    the group's volumes stacked into one chain of 112 slices, in turns; the
+    idle share from a 5-step call under the profiler), then the ancestral
+    chain truncated at t = 50 (the full 500-step chain is cut to 50 steps
+    for time; the width is not cut). Returns the launches of each mode's
+    call."""
     import dataclasses
 
     import torch
@@ -1584,14 +1646,24 @@ def phase_iterative_full_size():
                     f"{mode} full size: reconstruction not finite")
             require(reco.float().std().item() > 1e-3, f"{mode} full size: constant")
             require(math.isnan(float(aux["loss"])), f"{mode} full size: loss is not NaN")
-        require(got["fractal_noise_2d"] == steps and got["attention_fwd_mma"] == steps
+        require(got["fractal_noise_2d"] == 2 * steps and got["attention_fwd_mma"] == 2 * steps
                 and got["attention_fwd_scalar"] == 0,
-                f"{mode} full size: launches {got} in {steps} steps")
+                f"{mode} full size: launches {got} in {steps} steps of 2 volumes")
         slices = 2 * 56
         out[mode] = {"steps": steps, "from_t": task.cfg.test_timesteps if mode == "ddim"
-                     else steps, "unet_batch": slices, "launches": got, "s_per_call": call_s,
-                     "s_per_volume": call_s / 2,
+                     else steps, "unet_batch": slices // 2, "launches": got,
+                     "s_per_call": call_s, "s_per_volume": call_s / 2,
                      "slice_denoises_per_sec": steps * slices / call_s}
+        if mode == "ddim":  # per-volume chains against one stacked chain, in turns
+            readings = {"per_volume": [call_s], "group_stack": []}
+            for key in ("group_stack", "group_stack", "per_volume"):
+                with group_stack_layout(recon, key == "group_stack"):
+                    t0 = time.perf_counter()
+                    recon.batch_call(vols, draws)
+                    torch.cuda.synchronize()
+                    readings[key].append(time.perf_counter() - t0)
+            out[mode]["s_per_call_readings"] = readings
+            out[mode]["s_per_call_group_stack"] = sum(readings["group_stack"]) / 2
         if mode == "ddim":  # the idle share, from a 5-step call on the same weights
             short = DDPMTask(dataclasses.replace(task.cfg, sampling_steps=5), device="cuda")
             short.load_state_dict(task.state_dict())
@@ -1620,6 +1692,102 @@ def phase_iterative_full_size():
                     "reco_mode=ancestral at test_timesteps=50 (cut from 500)",
           "volumes": 2, "shape": list(EVAL_SHAPE), **out})
     return launches
+
+
+def _ddpm_f32_task():
+    """experiment=cDDPM/DDPM (the unconditional baseline: UNet 128, mult
+    (1, 2, 2), no encoder, no noise ensemble, float32) at full width, as the
+    port's CLI materializes it, from seeded weights."""
+    from conditioned_diffusion_models_uad_torch import config
+    from conditioned_diffusion_models_uad_torch.models.tasks import DDPMTask
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    cfg = config.materialize(config.compose(str(ROOT / "configs"), "cDDPM/DDPM", [])).model
+    require(cfg.dtype == "float32" and not cfg.condition and not cfg.noise_ensemble,
+            f"DDPM.yaml materialized as {cfg}")
+    return randomize_(DDPMTask(cfg, device="cuda"), 0)
+
+
+def phase_ddpm_f32_full_size():
+    """The unconditional DDPM baseline (configs/experiment/cDDPM/DDPM.yaml,
+    float32) at full width through the port's config loader, TF32 off as in
+    every float32 phase: train steps at batch 32 (s/step over 3 after 3 of
+    warm-up, a profiled window of 2), then one eval group of 2 lesion
+    volumes at EVAL_SHAPE through ``batch_call_scored`` (a model call a
+    volume: the UNet at 56 rows, one K1 launch) after a warm-up group, and
+    that group under the profiler. The launch counters are zeroed just
+    before each timed run and read just after: float32 attention must take
+    ``attention_fwd_scalar`` on both paths and never the tensor-core
+    kernel. Reports s/step, slice-denoises/s, the idle share and the scalar
+    K2 kernel's share of kernel time. Returns the launches of a step and of
+    the group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from conditioned_diffusion_models_uad_torch.eval.fused import parse_packed
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+
+    _no_tf32()
+    tf32 = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    task = _ddpm_f32_task()
+    train, per_step = _train_step_numbers(task, 32, 17, "profile_ddpm_f32_train_step.txt",
+                                          n_learn=0, reps=3, n_prof=2, n_parts=2)
+    k2_train = train["kernel_ms_per_step_by_kind"].get("K2 attention", 0.0)
+    train["k2_kernel_share"] = k2_train * train["profiled_steps"] / train["profiled_kernel_ms"]
+
+    recon = VolumeReconstructor(task)
+    subs = _eval_subjects(2, 34, lesion=True)
+    flags = _ddp_eval_flags()
+    seeds = _volume_seeds(task, range(len(subs)))
+    recon.batch_call_scored(subs, flags, seeds)[1].cpu()  # warm-up: the 56-row shapes
+    torch.cuda.synchronize()
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    _, packed = recon.batch_call_scored(subs, flags, seeds)
+    packed = packed.cpu()
+    group_s = time.perf_counter() - t0
+    eval_launches = _read_launches(counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        recon.batch_call_scored(subs, flags, seeds)[1].cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_events(prof)
+    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    by_kind = {}
+    for ev in kernels:
+        kind = kernel_kind(ev.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3
+    st = flags["statics"]
+    rows = [parse_packed(packed[j], EVAL_SHAPE, recon.latent_len(), st["pack_seg"],
+                         st["pack_maps"])["scalars"] for j in range(len(subs))]
+    slices = 56 * len(subs)
+    evaluation = {"volumes": len(subs), "shape": list(EVAL_SHAPE), "unet_batch": 56,
+                  "s_per_group": group_s, "slice_denoises_per_sec": slices / group_s,
+                  "launches": eval_launches, "profiled_wall_ms": wall_ms,
+                  "profiled_kernel_ms": busy_ms,
+                  "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                  "kernel_ms_by_kind": by_kind,
+                  "k2_kernel_share": by_kind.get("K2 attention", 0.0) / busy_ms,
+                  "auprc": [r["auprc"] for r in rows], "best_dice": [r["best_dice"] for r in rows],
+                  "aux_loss": [r["aux_loss"] for r in rows]}
+    emit({"phase": "ddpm_f32_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "experiment=cDDPM/DDPM (unconditional, UNet 128, mult (1,2,2), "
+                    "float32, noise_ensemble false), eval=device_fast scoring",
+          "tf32": tf32, "train_step": train, "eval_group": evaluation})
+    for name, per in (("train step", per_step), ("eval group", eval_launches)):
+        require(per["attention_fwd_scalar"] >= 1 and per["attention_fwd_mma"] == 0,
+                f"DDPM float32 {name}: K2 launches {per}")
+        require(per["fractal_noise_2d"] >= 1, f"DDPM float32 {name}: K1 launches {per}")
+    require(eval_launches["attention_fwd_scalar"] == len(subs)
+            and eval_launches["fractal_noise_2d"] == len(subs),
+            f"DDPM float32 eval group: one UNet call and one K1 launch a volume: "
+            f"{eval_launches}")
+    for r in rows:
+        require(all(math.isfinite(r[k]) for k in ("auprc", "best_dice", "aux_loss")),
+                f"DDPM float32 eval rows not finite: {r}")
+    require(math.isfinite(train["s_per_step"]), "DDPM float32 step")
+    return per_step, eval_launches
 
 
 def _patched_cfg(**kw):
@@ -1712,8 +1880,10 @@ def phase_patched_correctness():
 
 def phase_patched_full_size():
     """The DDPM_patched config at full width (bf16): one eval group of 2
-    volumes at EVAL_SHAPE (112 slices x 4 boxes: one UNet call at batch
-    448) through ``VolumeReconstructor(patched=True).batch_call``, then the
+    volumes at EVAL_SHAPE (a call a volume, 56 slices x 4 boxes: a UNet call
+    at batch 224 each) through ``VolumeReconstructor(patched=True).
+    batch_call``, against the group stacked into one call (batch 448) in
+    turns, then the
     batch-32 train step with ``use_checkpoint`` on and off: s/step over 10
     steps after 3 of warm-up, and peak memory. Returns the launches of the
     eval group and of one train step."""
@@ -1731,7 +1901,7 @@ def phase_patched_full_size():
     recon = VolumeReconstructor(task, patched=True)
     vols = [s["vol"] for s in _eval_subjects(2, 33, True)]
     draws = volume_draws(task, eval_key(3141, 0), [0, 1])
-    recon.batch_call(vols, draws)  # warm-up: the batch-448 shapes
+    recon.batch_call(vols, draws)  # warm-up: the batch-224 shapes
     torch.cuda.synchronize()
     counters = _zero_launches()
     t0 = time.perf_counter()
@@ -1743,9 +1913,19 @@ def phase_patched_full_size():
         require(reco.shape == EVAL_SHAPE and bool(torch.isfinite(reco).all()),
                 "pDDPM full size: reconstruction not finite")
         require(math.isfinite(float(aux["loss"])), "pDDPM full size: loss not finite")
-    require(eval_launches["fractal_noise_2d"] == 1 and eval_launches["attention_fwd_mma"] == 1
+    require(eval_launches["fractal_noise_2d"] == 2 and eval_launches["attention_fwd_mma"] == 2
             and eval_launches["attention_fwd_scalar"] == 0,
             f"pDDPM eval group launches {eval_launches}")
+    readings = {"per_volume": [group_s], "group_stack": []}
+    with group_stack_layout(recon):
+        recon.batch_call(vols, draws)  # warm-up: the batch-448 shapes
+    for key in ("group_stack", "group_stack", "per_volume"):
+        with group_stack_layout(recon, key == "group_stack"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recon.batch_call(vols, draws)
+            torch.cuda.synchronize()
+            readings[key].append(time.perf_counter() - t0)
     del task, recon
 
     b, train = 32, {}
@@ -1779,9 +1959,11 @@ def phase_patched_full_size():
           "config": "experiment=cDDPM/DDPM_patched (unet 128, mult (1,2,2), 3 res blocks, "
                     "96x96, 48x48 patches, inpaint, bf16)",
           "eval_group": {"volumes": 2, "shape": list(EVAL_SHAPE), "boxes": 4,
-                         "unet_batch": 4 * 112, "s_per_group": group_s,
+                         "unet_batch": 4 * 56, "s_per_group": group_s,
                          "s_per_volume": group_s / 2,
                          "slice_denoises_per_sec": 4 * 112 / group_s,
+                         "s_per_group_group_stack": sum(readings["group_stack"]) / 2,
+                         "s_per_group_readings": readings,
                          "launches": eval_launches},
           "train_step": {"batch": b, **train}})
     return eval_launches, train["use_checkpoint"]["launches_per_step"]
@@ -2988,7 +3170,9 @@ def _ddp_full_rank(rank, steps, subs):
     _, packed = recon.batch_call_scored(subs, flags, seeds)
     torch.cuda.synchronize()
     evaluation = {"s": time.perf_counter() - t0, "launches": _read_launches(counters),
-                  "packed": packed.cpu()}
+                  "packed": packed.cpu(),
+                  # one volume's __call__: slice-parallel, a rank's half of its depth
+                  "call_reco": recon(subs[0]["vol"], seeds[:1]).float().cpu()}
 
     opt = loop.make_optimizer(task)
     data, vi, si, g = _train_setup(DDP_FULL_BATCH, "cuda", 7)  # the same on every rank
@@ -3051,9 +3235,11 @@ def phase_ddp_full_size_and_eval():
     the seeded weights. ``ddp_eval``: a group of 2 lesion volumes at
     EVAL_SHAPE, one a rank, reconstructed and scored by
     ``batch_call_scored`` and gathered; each volume's buffer must equal, bit
-    for bit, this process's scoring of that volume alone (the same UNet
-    batch); the same group in this process is reported beside it (the UNet
-    at twice the batch rounds bf16 otherwise). ``ddp_full_size``: the train
+    for bit, this process's scoring of that volume alone and this process's
+    scoring of the whole group (a model call a volume: the same UNet batch
+    on a rank and in one process); one volume's ``__call__``, slice-parallel
+    (a rank takes half its depth), is reported against one process: the one
+    layout-dependent path. ``ddp_full_size``: the train
     step at global batch DDP_FULL_BATCH (16 a rank), DDP_FULL_STEPS timed
     steps. Both ranks share the one card and gloo moves the float32
     gradients through the host each step: a rig that drives the path at
@@ -3107,15 +3293,28 @@ def phase_ddp_full_size_and_eval():
             elif not (math.isnan(v) and math.isnan(g[k])):
                 vs_group["max_abs_float"] = max(vs_group["max_abs_float"], abs(g[k] - v))
     bit_equal = [bool(torch.equal(gathered[j], alone[j])) for j in range(2)]
+    group_equal = [bool(torch.equal(gathered[j], group[j].cpu())) for j in range(2)]
+    # the one layout-dependent path: a single volume's slice-parallel call
+    call_diff = (ranks[0]["eval"]["call_reco"]
+                 - recon(subs[0]["vol"], seeds[:1]).float().cpu()).abs()
+    call_vs_one = {"max_abs": call_diff.max().item(),
+                   "share_of_voxels_differing": (call_diff > 0).float().mean().item()}
     emit({"phase": "ddp_eval", "nvidia_smi": nvidia_smi(), "backend": "gloo",
           "devices": ONE_CARD_TWICE, "volumes": 2, "shape": list(EVAL_SHAPE),
           "config": "DDPMTaskConfig() (bf16), eval=device_fast scoring, one volume a rank",
           "rank_s": [r["eval"]["s"] for r in ranks], "single_group_s": group_s,
           "launches_by_rank": [r["eval"]["launches"] for r in ranks],
-          "bit_equal_to_each_volume_alone": bit_equal, "vs_single_group": vs_group})
+          "bit_equal_to_each_volume_alone": bit_equal,
+          "bit_equal_to_single_group": group_equal, "vs_single_group": vs_group,
+          "slice_parallel_call_vs_one_process": call_vs_one})
+    require(torch.equal(ranks[0]["eval"]["call_reco"], ranks[1]["eval"]["call_reco"]),
+            "the ranks gathered different slice-parallel reconstructions")
+    require(math.isfinite(call_vs_one["max_abs"]), "slice-parallel reconstruction not finite")
     require(torch.equal(gathered, ranks[1]["eval"]["packed"]),
             "the ranks gathered different buffers")
     require(all(bit_equal), "a rank's scored volume differs from the volume scored alone")
+    require(all(group_equal) and vs_group["counts_moved"] == 0,
+            f"a rank's scored volume differs from this process's group: {vs_group}")
     for r in ranks:
         per = r["eval"]["launches"]
         require(per["fractal_noise_2d"] >= 1 and per["attention_fwd_mma"] >= 1,
@@ -3155,44 +3354,55 @@ def main() -> int:
 def run_phases(gen, work: Path) -> int:
     import torch
 
-    phase_device()
+    phase_s = {}
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
+        return out
+
+    timed(phase_device)
     with paused(gen):
-        k1 = phase_k1()
-        k2 = phase_k2()
-        k3 = phase_k3()
-    slice_launches = phase_slice_correctness()
+        k1 = timed(phase_k1)
+        k2 = timed(phase_k2)
+        k3 = timed(phase_k3)
+    slice_launches = timed(phase_slice_correctness)
     with paused(gen):
-        launches = phase_full_size()
-    phase_eval_correctness()
+        launches = timed(phase_full_size)
+    timed(phase_eval_correctness)
     with paused(gen):
-        eval_run = phase_eval_full_size()
-    phase_train_correctness()
+        eval_run = timed(phase_eval_full_size)
+    timed(phase_train_correctness)
     with paused(gen):
-        train_launches = phase_train_full_size()
-    phase_spark_correctness()
+        train_launches = timed(phase_train_full_size)
+    timed(phase_spark_correctness)
     with paused(gen):
-        spark_launches = phase_spark_train_full_size()
+        spark_launches = timed(phase_spark_train_full_size)
     t_new = time.perf_counter()
-    phase_iterative_correctness()
+    timed(phase_iterative_correctness)
     with paused(gen):
-        iter_launches = phase_iterative_full_size()
-    phase_patched_correctness()
+        iter_launches = timed(phase_iterative_full_size)
+    timed(phase_patched_correctness)
     with paused(gen):
-        pd_eval_launches, pd_train_launches = phase_patched_full_size()
+        pd_eval_launches, pd_train_launches = timed(phase_patched_full_size)
     new_phases_s = time.perf_counter() - t_new
-    t_var = time.perf_counter()
-    phase_variants_correctness()
     with paused(gen):
-        var_launches = phase_variants_full_size()
-        phase_prepare_full_size(work)
+        ddpm_train_launches, ddpm_eval_launches = timed(phase_ddpm_f32_full_size)
+    t_var = time.perf_counter()
+    timed(phase_variants_correctness)
+    with paused(gen):
+        var_launches = timed(phase_variants_full_size)
+        timed(phase_prepare_full_size, work)
     variants_s = time.perf_counter() - t_var
     data_wait_s = wait_file_data(gen)
     t_new10 = time.perf_counter()
-    phase_native_io(work)
-    files = phase_run_from_files(work, data_wait_s)
-    phase_ckpt_overlap(work)
-    ddp_correct_launches = phase_ddp_correctness(work)
-    ddp_train_launches, ddp_eval_launches = phase_ddp_full_size_and_eval()
+    timed(phase_native_io, work)
+    files = timed(phase_run_from_files, work, data_wait_s)
+    timed(phase_ckpt_overlap, work)
+    ddp_correct_launches = timed(phase_ddp_correctness, work)
+    ddp_train_launches, ddp_eval_launches = timed(phase_ddp_full_size_and_eval)
     phases10_s = time.perf_counter() - t_new10
     k2_mma, k2_scalar = k2["mma"], k2["scalar"]
     for at, key_ in (("at_train_shape", "mma_train"), ("at_pddpm_eval_shape", "mma_pddpm"),
@@ -3201,9 +3411,17 @@ def run_phases(gen, work: Path) -> int:
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     k2_scalar["at_flagship_bf16"] = {key: k2["scalar_bf16"][key] for key in (
         "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    for at, key_ in (("at_ddpm_train_shape", "scalar_ddpm_train"),
+                     ("at_ddpm_eval_shape", "scalar_ddpm_eval")):
+        k2_scalar[at] = {key: k2[key_][key] for key in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
     k1["launches"] = launches["fractal_noise_2d"]
     k2_mma["launches"] = launches["attention_fwd_mma"]
-    k2_scalar["launches"] = launches["attention_fwd_scalar"]
+    # the float32 kernel's path is the DDPM baseline's (bf16 reconstruction
+    # takes the tensor-core kernel): its eval group's count
+    k2_scalar["launches"] = ddpm_eval_launches["attention_fwd_scalar"]
+    k2_scalar["launches_counted_over"] = "ddpm_f32_eval_group"
     k3_cluster, k3_two_pass = k3["cluster"], k3["two_pass"]
     for rec, name in ((k1, "fractal_noise_2d"), (k2_mma, "attention_fwd_mma"),
                       (k2_scalar, "attention_fwd_scalar"),
@@ -3225,6 +3443,8 @@ def run_phases(gen, work: Path) -> int:
                                    "pddpm_fit_epoch": files["pddpm_fit_epoch"][name],
                                    "pddpm_eval_from_files": files["pddpm_eval_from_files"][name],
                                    "ddim_eval_from_files": files["ddim_eval_from_files"][name],
+                                   "ddpm_f32_train_step": ddpm_train_launches[name],
+                                   "ddpm_f32_eval_group": ddpm_eval_launches[name],
                                    **{path: counts[name] for path, counts in
                                       var_launches.items()},
                                    **{f"ddp_train_step_rank{r}": per[name]
@@ -3241,7 +3461,8 @@ def run_phases(gen, work: Path) -> int:
     emit({"phase": "timing", "iterative_and_patched_phases_s": new_phases_s,
           "variants_and_prepare_phases_s": variants_s,
           "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"],
-          "native_io_run_from_files_and_ddp_phases_s": phases10_s})
+          "native_io_run_from_files_and_ddp_phases_s": phases10_s,
+          "phase_s": phase_s})
     emit({"kernels": [k1, k2_mma, k2_scalar, k3_cluster, k3_two_pass]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,10 +4,17 @@
 Depth is folded into the batch (reference src/models/DDPM_2D.py:193-257) and
 padded up to a multiple of ``depth_bucket`` with edge-replicated slices, so
 volumes of nearby depths share the UNet's batch shapes. A group of G
-same-shape volumes runs as one reconstruction (one UNet call at batch
-E * G * padded depth) and, in ``batch_call_scored``, is scored on the same
-device by ``fused.group_eval_core``; its packed buffer is the group's one
-host fetch.
+same-shape volumes is stacked, but each volume goes through the encoder and
+UNet in a call of its own (``task.reconstruct_with_aux`` on that volume's
+padded stack with its own draws, E * padded depth rows in the UNet) and the
+results are concatenated: a volume's rows see the same shapes alone, in any
+group and on any rank, so cuDNN, cuBLAS and oneDNN take the same algorithms
+and reduction splits for them, and the rows are bit for bit the same
+whatever ``eval.volumes_per_call`` and the rank count (the JAX package's
+dispatch-invariance contract, tests/test_dispatch_invariance.py). In
+``batch_call_scored`` the group is then scored on the same device by
+``fused.group_eval_core`` (per volume too); its packed buffer is the group's
+one host fetch.
 
 Where the JAX reconstructor takes keys ([2], or [G, 2] of fold_in(key, i)),
 this one takes the draws its task's reconstruction takes, one row a volume,
@@ -17,13 +24,16 @@ path, the JAX-package keys [G, 2] of fold_in(key, i) for its iterative and
 patched (``patched=True``: ``reconstruct_patched_with_aux``) ones, for table
 noise and for SparK.
 
-Within a process group (``parallel/mesh.py``) the reconstructor is the JAX
-one on a mesh: ``__call__`` and ``batch_call`` are slice-parallel (each
+Within a process group (``parallel/mesh.py``) ``batch_call`` and
+``batch_call_scored`` are volume-parallel when the group's G volumes divide
+by the world size (rank r reconstructs, and scores, its contiguous share of
+the volumes, and the results are gathered), so they equal one process's bit
+for bit. ``__call__`` of one volume, and ``batch_call`` of a group that does
+not divide, are slice-parallel as the JAX package's mesh program is: each
 volume's bucketed depth, a multiple of the world size, is split into
 contiguous parts, rank r reconstructs part r of every volume with the
-volume's own draws, and the parts are gathered), and ``batch_call_scored``
-is volume-parallel (rank r reconstructs and scores its contiguous share of
-the group's volumes, and the packed buffers and residuals are gathered).
+volume's own draws, and the parts are gathered. That is the one path whose
+rows depend on the layout: a rank's part runs at 1/W of the volume's rows.
 Every rank calls each method with the same arguments and gets the whole
 result.
 """
@@ -92,25 +102,49 @@ class VolumeReconstructor:
             raise ValueError(f"seeds must have {groups} rows, got {tuple(seeds.shape)}")
         return seeds
 
+    def _per_volume(self, slices: torch.Tensor, draws, g: int):
+        """(reco, aux) of a stack of ``g`` volumes' slices [g * n, H, W, 1]:
+        each volume's n slices reconstructed in a call of their own with its
+        own draws, the results concatenated in volume order."""
+        if g == 1:
+            return self._reconstruct(slices, draws)
+        n = slices.shape[0] // g
+        outs = [self._reconstruct(slices[v * n:(v + 1) * n], draws[v:v + 1])
+                for v in range(g)]
+        return (torch.cat([reco for reco, _ in outs]),
+                {k: torch.cat([aux[k] for _, aux in outs]) for k in outs[0][1]})
+
     def _run(self, slices: torch.Tensor, draws, g: int):
         """The reconstruction (reco, aux) of a stack of ``g`` volumes' slices
-        [g * pad, H, W, 1], slice-parallel within a process group: rank r
-        takes part r of each volume's ``pad`` slices (``task.shard`` tells
-        the task which part of each volume's draws it computes)."""
+        [g * pad, H, W, 1], a call a volume. Within a process group it is
+        volume-parallel when ``g`` divides by the world size (rank r takes
+        its contiguous share of the volumes) and otherwise slice-parallel
+        (rank r takes part r of each volume's ``pad`` slices; ``task.shard``
+        tells the task which part of each volume's draws it computes)."""
         if self.size == 1:
-            return self._reconstruct(slices, draws)
+            return self._per_volume(slices, draws, g)
         rank, size = self.rank, self.size
         pad = slices.shape[0] // g
-        part = pad // size
         rest = slices.shape[1:]
-        local = slices.reshape(g, pad, *rest)[:, rank * part:(rank + 1) * part]
-        with sharded(self.task, rank, size):
-            reco, aux = self._reconstruct(local.reshape(g * part, *rest), draws)
+        volume_parallel = g % size == 0
+        if volume_parallel:
+            per = g // size
+            lo = rank * per
+            reco, aux = self._per_volume(slices[lo * pad:(lo + per) * pad],
+                                         draws[lo:lo + per], per)
+        else:
+            part = pad // size
+            local = slices.reshape(g, pad, *rest)[:, rank * part:(rank + 1) * part]
+            with sharded(self.task, rank, size):
+                reco, aux = self._per_volume(local.reshape(g * part, *rest), draws, g)
 
-        def whole(t):  # every rank's [g * part, ...] -> [g * pad, ...]
+        def whole(t):  # every rank's rows -> [g * pad, ...] in volume order
             if t.numel() == 0:
                 return t.new_zeros((g * pad, *t.shape[1:]))
-            full = all_gather_cat(t).reshape(size, g, part, *t.shape[1:])
+            full = all_gather_cat(t)
+            if volume_parallel:  # rank order is volume order
+                return full
+            full = full.reshape(size, g, part, *t.shape[1:])
             return full.transpose(0, 1).reshape(g * pad, *t.shape[1:])
 
         return whole(reco), {k: whole(v) for k, v in aux.items()}
@@ -118,10 +152,11 @@ class VolumeReconstructor:
     def __call__(self, vol_hwd, seeds=None, *, generator: Optional[torch.Generator] = None,
                  return_aux: bool = False):
         """Reconstruct one volume with seeds [1, E] (or drawn from
-        ``generator``): reco [H, W, D] on the device, and with
-        ``return_aux`` {'loss', 'latent'}, the eval-forward diffusion loss
-        and the slice-mean conditioning latent over the true depth (padding
-        slices left out, reference DDPM_2D.py:251-278)."""
+        ``generator``): reco [H, W, D] on the device, and with ``return_aux``
+        {'loss', 'latent'}, the eval-forward diffusion loss and the
+        slice-mean conditioning latent over the true depth (padding slices
+        left out, reference DDPM_2D.py:251-278). Within a process group it is
+        slice-parallel: the one path whose rows depend on the world size."""
         slices, d = self._prep(vol_hwd)
         slices, _ = pad_to_multiple(slices, self.depth_multiple, axis=0)
         reco, aux = self._run(slices, self._seeds(seeds, generator, 1), 1)
@@ -140,9 +175,10 @@ class VolumeReconstructor:
         return torch.cat(stacks, dim=0), pad, [d for _, d in preps]
 
     def batch_call(self, vols, seeds=None, *, generator: Optional[torch.Generator] = None):
-        """Reconstruct several same-resolution volumes in one call; seeds
-        [G, E], one row a volume, so each volume reconstructs as it would
-        alone. Returns [(reco_hwd, {'loss', 'latent'})] in input order."""
+        """Reconstruct several same-resolution volumes, a model call each;
+        seeds [G, E], one row a volume, so each volume reconstructs bit for
+        bit as it does alone. Returns [(reco_hwd, {'loss', 'latent'})] in
+        input order."""
         slices, pad, depths = self._stack(vols)
         g = len(depths)
         reco, aux = self._run(slices, self._seeds(seeds, generator, g), g)
@@ -182,7 +218,7 @@ class VolumeReconstructor:
         slices, pad, depths = self._stack([s["vol"] for s in subs])
         g = len(subs)
         d = depths[0]
-        reco, aux = self._reconstruct(slices, draws)
+        reco, aux = self._per_volume(slices, draws, g)
         h, w = reco.shape[1], reco.shape[2]
         reco_g = reco[..., 0].reshape(g, pad, h, w)[:, :d].movedim(1, -1)  # [G, H, W, d]
         loss_g = aux["loss_per_slice"].reshape(g, pad)[:, :d].mean(dim=1)

@@ -62,8 +62,8 @@ def kernel_for(dtype: torch.dtype, s: int, d: int) -> str:
 
 def _check_qkv(qkv: torch.Tensor, kernel: str) -> None:
     """Raise unless ``kernel`` takes this qkv: shape, dtype, S and D, a
-    contiguous layout and, for the tensor-core kernel, 16-byte aligned rows
-    (a view with a storage offset could break it)."""
+    contiguous layout and 16-byte aligned rows (both kernels copy 16-byte
+    vectors; a view with a storage offset could break it)."""
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"expected qkv [B, S, 3, H, D], got {tuple(qkv.shape)}")
     _, s, _, _, d = qkv.shape
@@ -72,8 +72,8 @@ def _check_qkv(qkv: torch.Tensor, kernel: str) -> None:
         raise ValueError(f"the mma kernel does not take {qkv.dtype} at S={s}")
     if not qkv.is_contiguous():
         raise ValueError("fused_attention needs a contiguous qkv tensor")
-    if kernel == "mma" and qkv.data_ptr() % 16:
-        raise ValueError("the mma kernel needs 16-byte aligned qkv rows "
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"the {kernel} kernel needs 16-byte aligned qkv rows "
                          f"(data_ptr % 16 = {qkv.data_ptr() % 16})")
 
 
@@ -103,8 +103,10 @@ def attention_fwd_mma(qkv: torch.Tensor) -> torch.Tensor:
 
 def attention_fwd_scalar(qkv: torch.Tensor) -> torch.Tensor:
     """K2 on the CUDA cores for float32 or bf16 qkv [B, S, 3, H, D] of any S,
-    D in {32, 64}. A CPU tensor takes the plain version. Counts its launches
-    in ``attention_fwd_scalar.launches`` and ``fused_attention.launches``."""
+    D in {32, 64}: float32 in one pass with an online softmax, bf16 in two
+    (its weights round to bf16 normalised, as the plain version's do). A CPU
+    tensor takes the plain version. Counts its launches in
+    ``attention_fwd_scalar.launches`` and ``fused_attention.launches``."""
     if qkv.device.type == "cpu":
         return attention_reference(qkv)
     _check_qkv(qkv, "scalar")

@@ -191,3 +191,69 @@ def test_k2_variants_apply_to_the_shipped_source(name):
     assert src is not None
     assert src != (kernel_variants._build.CSRC / "attention_mma.cu").read_text()
     assert "attention_mma_fwd_kernel" in src
+
+
+KEY_TILE = 64  # keys a shared-memory tile of csrc/attention.cu
+
+
+def scalar_kernel_emulation(qkv: torch.Tensor) -> torch.Tensor:
+    """csrc/attention.cu's arithmetic on the CPU, for qkv [B, S, 3, H, D].
+    float32, one pass: q scaled by round(D^-1/4) twice (K's factor folded
+    in); per tile of 64 keys the row max updated, the running sum and output
+    rescaled by exp(m_old - m_new), the weights exp(s - m) multiplied into
+    V; the output divided by the sum at the end. bf16, two passes: q*s and
+    k*s rounded to bf16; the max and the sum over all keys (the sum tile by
+    tile, rescaled), then the weights exp(s - m) / l rounded to bf16 and
+    multiplied into V; the output rounded to bf16."""
+    d, s = qkv.shape[-1], qkv.shape[1]
+    dt = qkv.dtype
+    scale = torch.tensor(qk_scale(d, dt), dtype=dt)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # [B, H, S, D]
+    one_pass = dt == torch.float32
+    if one_pass:
+        q = (q * scale) * scale
+        k = k.clone()
+    else:
+        q = (q * scale).float()
+        k = (k * scale).float()
+    v = v.float()
+    logits = q @ k.transpose(-1, -2)  # [B, H, S, S] f32
+    tiles = [slice(t, min(t + KEY_TILE, s)) for t in range(0, s, KEY_TILE)]
+    m = torch.full(logits.shape[:-1], -float("inf"))
+    l = torch.zeros(logits.shape[:-1])
+    out = torch.zeros((*logits.shape[:-1], d))
+    for t in tiles:
+        mn = torch.maximum(m, logits[..., t].amax(-1))
+        alpha = torch.exp(m - mn)
+        p = torch.exp(logits[..., t] - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        if one_pass:
+            out = out * alpha[..., None] + p @ v[..., t, :]
+        m = mn
+    if one_pass:
+        out = out / l[..., None]
+    else:
+        weights = (torch.exp(logits - m[..., None]) / l[..., None]).to(dt).float()
+        out = weights @ v
+    return out.permute(0, 2, 1, 3).to(dt)
+
+
+@pytest.mark.parametrize("dtype,shape", [("float32", (1, 576, 4, 64)),
+                                         ("float32", (2, 100, 2, 32)),
+                                         ("bfloat16", (1, 600, 2, 64))])
+def test_scalar_emulation_matches_pallas_interpret(dtype, shape):
+    tdt, jdt = DTYPES[dtype]
+    x = _qkv(shape, seed=8)
+    got = scalar_kernel_emulation(torch.from_numpy(x).to(tdt))
+    want = jattn.fused_attention(jnp.asarray(x, jdt), True).astype(jnp.float32)
+    assert got.shape == (shape[0], shape[1], shape[2], shape[3]) and got.dtype == tdt
+    _compare(got, want, dtype)
+
+
+def test_scalar_check_raises_on_misaligned_qkv():
+    aligned = torch.zeros((2, 64, 3, 2, 32), dtype=torch.float32)
+    _check_qkv(aligned, "scalar")
+    shifted = torch.zeros(aligned.numel() + 1)[1:].view(aligned.shape)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="aligned"):
+        _check_qkv(shifted, "scalar")

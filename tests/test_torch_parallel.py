@@ -416,6 +416,27 @@ def test_volume_parallel_scoring_matches_jax_mesh(recon_runs):
         assert g["lesion_size"] == w["lesion_size"]
 
 
+def test_volume_parallel_buffers_bit_equal_one_process(recon_runs):
+    """A group of 2 on 2 ranks is volume-parallel in batch_call_scored and
+    batch_call: each rank runs its volume at the shapes one process runs it
+    at, so the gathered buffers equal one process's bit for bit (the JAX
+    package's dispatch-invariance contract across rank counts)."""
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+
+    seeds = recon_runs["seeds"]
+    recon = VolumeReconstructor(_eval_task(), device="cpu")
+    subs = _eval_subjects()
+    flags = _session()._fused_flags(EVAL_SHAPE, seg_is_host=True)
+    diff, packed = recon.batch_call_scored(subs, flags, seeds)
+    batch = recon.batch_call([s["vol"] for s in subs], seeds)
+    for r in recon_runs["ranks"]:
+        assert torch.equal(r["packed"], packed) and torch.equal(r["diff"], diff)
+        for (g, g_aux), (w, w_aux) in zip(r["batch"], batch):
+            assert torch.equal(g, w)
+            assert torch.equal(g_aux["loss"], w_aux["loss"])
+            assert torch.equal(g_aux["latent"], w_aux["latent"])
+
+
 def test_slice_parallel_reconstruction_matches_one_process(recon_runs):
     from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
 
