@@ -52,8 +52,12 @@ call to give equal counts and packed rows, and times that dispatch beside
 the group stacked into one call (as do ``iterative_full_size`` and
 ``patched_full_size``); ``ddpm_f32_full_size`` drives the unconditional DDPM
 baseline (experiment cDDPM/DDPM, float32) at full width: a batch-32 train
-step and an eval group, both through K2's float32 kernel. Each path is
-driven with the
+step and an eval group, both through K2's float32 kernel;
+``fullres_full_size`` drives the flagship config at full resolution
+(``datamodule.rescale_factor=1``: 192x192, the middle block's attention over
+S = 2304): a train step and an eval group through K2's long-sequence
+tensor-core kernel, which is also held against the plain version on the
+middle block's own qkv. Each path is driven with the
 kernels' launch counters set to 0 just before it and read just after. Every
 phase prints one JSON line (all of them also go to
 ``chiprun_out/chip_smoke.jsonl``); any failed check raises, so the process
@@ -245,9 +249,10 @@ def phase_k1():
     recs = []
     # the reconstruction's 6 fields (2 volumes x 3 members through the task's
     # group entry), the train step's and a sampler step's one, a ragged
-    # shape, an eval volume's 3 (a call a volume) and a pDDPM volume's 4 boxes
+    # shape, an eval volume's 3 (a call a volume) and a pDDPM volume's 4
+    # boxes, and the full-resolution eval volume's 3 and train step's 1
     for shape, n in (((96, 96), 6), ((96, 96), 1), ((37, 130), 3), ((96, 96), 3),
-                     ((96, 96), 4)):
+                     ((96, 96), 4), ((192, 192), 3), ((192, 192), 1)):
         seeds = torch.randint(0, 2**31 - 1, (n,), generator=g, dtype=torch.int32)
         seeds[0] = 2**31 - 2
         rec = k1_record(seeds.cuda(), shape)
@@ -255,20 +260,48 @@ def phase_k1():
         recs.append(rec)
     emit({"phase": "k1", "results": recs})
     for at, rec in (("at_train_and_sampler_step_shape", recs[1]),
-                    ("at_eval_volume_shape", recs[3]), ("at_pddpm_volume_shape", recs[4])):
+                    ("at_eval_volume_shape", recs[3]), ("at_pddpm_volume_shape", recs[4]),
+                    ("at_fullres_eval_volume_shape", recs[5]),
+                    ("at_fullres_train_step_shape", recs[6])):
         recs[0][at] = {key: rec[key] for key in ("shape", "max_abs_err", "ms", "graph_ms",
                                                   "plain_ms", "bound_ms", "bound_by")}
     return recs[0]
 
 
 K2_VARIANTS = {"mma": ("attention_fwd_mma", "csrc/attention_mma.cu"),
+               "mma_long": ("attention_fwd_mma_long", "csrc/attention_mma_long.cu"),
                "scalar": ("attention_fwd_scalar", "csrc/attention.cu")}
+# the plain version's [B, H, S, S] float32 logits at most this many bytes a
+# call: a longer qkv goes through it in batch chunks (the same function)
+K2_PLAIN_CHUNK_BYTES = 4e9
+
+
+def attention_plain(qkv):
+    """``attention_reference`` on ``qkv``, in batch chunks whose logits take at
+    most K2_PLAIN_CHUNK_BYTES (one chunk at every shape up to [576, 576, 3,
+    4, 64]; the full-resolution [312, 2304, …] would need ~80 GB at once)."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.ops.attention import attention_reference
+
+    b, s, _, h, _ = qkv.shape
+    per = max(1, int(K2_PLAIN_CHUNK_BYTES // (h * s * s * 4)))
+    if per >= b:
+        return attention_reference(qkv)
+    return torch.cat([attention_reference(qkv[i:i + per]) for i in range(0, b, per)])
+
+
+def timed_ms(fn, most=20):
+    """``cuda_ms`` over up to ``most`` calls, fewer for a slow ``fn`` (about
+    half a second of calls, at least 3)."""
+    first = cuda_ms(fn, reps=1, warmup=1)
+    return cuda_ms(fn, reps=max(3, min(most, int(500 / max(first, 1e-3)))), warmup=0)
 
 
 def k2_record(qkv, kernel):
-    """K2 variant ``kernel`` ("mma" or "scalar") called directly on ``qkv``:
-    its error against the plain version, its time, the plain version's and
-    SDPA's, and its bound."""
+    """K2 variant ``kernel`` ("mma", "mma_long" or "scalar") called directly
+    on ``qkv``: its error against the plain version, its time, the plain
+    version's and SDPA's, and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -279,7 +312,7 @@ def k2_record(qkv, kernel):
     b, s, _, h, d = qkv.shape
     dtype = str(qkv.dtype).replace("torch.", "")
     got = wrapper(qkv)
-    want = A.attention_reference(qkv)
+    want = attention_plain(qkv)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     del want
@@ -294,8 +327,8 @@ def k2_record(qkv, kernel):
         "replaces": "conditioned_diffusion_models_uad_tpu/ops/attention_pallas.py:117",
         "shape": list(qkv.shape), "dtype": dtype, "launches": None,
         "max_abs_err": err, "tol": TOL_K2[dtype],
-        "ms": cuda_ms(lambda: wrapper(qkv), reps=20),
-        "plain_ms": cuda_ms(lambda: A.attention_reference(qkv), reps=3, warmup=1),
+        "ms": timed_ms(lambda: wrapper(qkv)),
+        "plain_ms": cuda_ms(lambda: attention_plain(qkv), reps=3, warmup=1),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": cuda_ms(
@@ -309,11 +342,15 @@ def phase_k2():
     """Each case through ``fused_attention`` (the launch counters show which
     variant its dispatch took, and it must be the one ``kernel_for`` names,
     with the variant's own output), then the variant alone against the plain
-    version; and the scalar kernel at the flagship bf16 shape, called
-    directly, to set beside the tensor-core kernel. The float32 rows at
-    [32, …] and [56, …] are the unconditional DDPM baseline's (DDPM.yaml,
-    float32): a batch-32 train step and one eval volume (50 slices padded
-    to 56, no noise ensemble)."""
+    version; and at [576, 576, …] bf16 the long-sequence tensor-core kernel
+    and the scalar kernel called directly, to set beside the S <= 576
+    tensor-core kernel, and the scalar kernel at the full-resolution eval
+    shape. The float32 rows at [32, …] and [56, …] are the unconditional
+    DDPM baseline's (DDPM.yaml, float32): a batch-32 train step and one
+    eval volume (50 slices padded to 56, no noise ensemble). The bf16 rows
+    at S = 2304 are the full-resolution cDDPM's (datamodule.rescale_factor
+    =1: the 48x48 middle block): an eval volume (3 members x 104 rows) and
+    a batch-32 train step."""
     import torch
 
     from conditioned_diffusion_models_uad_torch.ops import attention as A
@@ -321,25 +358,33 @@ def phase_k2():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(1)
+    # (key, shape, dtype, the variant called directly or None: dispatched)
     cases = [
-        ("mma", (576, 576, 3, 4, 64), torch.bfloat16, True),     # eval, batch 576
-        ("mma_train", (32, 576, 3, 4, 64), torch.bfloat16, True),  # train, batch 32
-        ("mma_pddpm", (224, 576, 3, 4, 64), torch.bfloat16, True),  # pDDPM eval volume
-        ("mma_iterative", (56, 576, 3, 4, 64), torch.bfloat16, True),  # a volume's step
-        (None, (3, 100, 3, 2, 64), torch.bfloat16, True),        # ragged S
-        (None, (2, 64, 3, 2, 32), torch.bfloat16, True),         # D = 32
-        (None, (2, 600, 3, 2, 64), torch.bfloat16, True),        # S beyond the mma limit
-        ("scalar_bf16", (576, 576, 3, 4, 64), torch.bfloat16, False),
-        ("scalar", (12, 576, 3, 4, 64), torch.float32, True),    # slice_correctness
-        ("scalar_ddpm_train", (32, 576, 3, 4, 64), torch.float32, True),  # DDPM.yaml step
-        ("scalar_ddpm_eval", (56, 576, 3, 4, 64), torch.float32, True),   # its eval volume
-        (None, (3, 100, 3, 2, 64), torch.float32, True),
-        (None, (2, 64, 3, 2, 32), torch.float32, True),
+        ("mma", (576, 576, 3, 4, 64), torch.bfloat16, None),     # eval, batch 576
+        ("mma_train", (32, 576, 3, 4, 64), torch.bfloat16, None),  # train, batch 32
+        ("mma_pddpm", (224, 576, 3, 4, 64), torch.bfloat16, None),  # pDDPM eval volume
+        ("mma_iterative", (56, 576, 3, 4, 64), torch.bfloat16, None),  # a volume's step
+        (None, (3, 100, 3, 2, 64), torch.bfloat16, None),        # ragged S
+        (None, (2, 64, 3, 2, 32), torch.bfloat16, None),         # D = 32
+        (None, (2, 600, 3, 2, 64), torch.bfloat16, None),        # S beyond the mma limit
+        ("mma_long_eval", (312, 2304, 3, 4, 64), torch.bfloat16, None),  # full-res volume
+        ("mma_long_train", (32, 2304, 3, 4, 64), torch.bfloat16, None),  # full-res step
+        (None, (2, 2401, 3, 2, 64), torch.bfloat16, None),       # 49x49: ragged key tile
+        (None, (2, 2401, 3, 2, 32), torch.bfloat16, None),       # and D = 32
+        ("mma_long_576", (576, 576, 3, 4, 64), torch.bfloat16, "mma_long"),
+        ("scalar_bf16", (576, 576, 3, 4, 64), torch.bfloat16, "scalar"),
+        ("scalar_bf16_fullres", (312, 2304, 3, 4, 64), torch.bfloat16, "scalar"),
+        ("scalar", (12, 576, 3, 4, 64), torch.float32, None),    # slice_correctness
+        ("scalar_ddpm_train", (32, 576, 3, 4, 64), torch.float32, None),  # DDPM.yaml step
+        ("scalar_ddpm_eval", (56, 576, 3, 4, 64), torch.float32, None),   # its eval volume
+        (None, (3, 100, 3, 2, 64), torch.float32, None),
+        (None, (2, 64, 3, 2, 32), torch.float32, None),
     ]
     recs, named = [], {}
-    for key, shape, dtype, dispatched in cases:
+    for key, shape, dtype, direct in cases:
+        dispatched = direct is None
         qkv = torch.randn(shape, generator=g).to(dtype).cuda()
-        kernel = A.kernel_for(dtype, shape[1], shape[-1]) if dispatched else "scalar"
+        kernel = A.kernel_for(dtype, shape[1], shape[-1]) if dispatched else direct
         rec = k2_record(qkv, kernel)
         if dispatched:
             counters = _zero_launches()
@@ -358,12 +403,16 @@ def phase_k2():
             named[key] = rec
         del qkv
         torch.cuda.empty_cache()
-    emit({"phase": "k2", "results": recs})
+    for long_key, scalar_key in (("mma_long_576", "scalar_bf16"),
+                                 ("mma_long_eval", "scalar_bf16_fullres")):
+        named[long_key]["times_faster_than_scalar_bf16"] = (named[scalar_key]["ms"]
+                                                            / named[long_key]["ms"])
+    emit({"phase": "k2", "nvidia_smi": nvidia_smi(), "results": recs})
     return named
 
 
 def k3_record(x, gamma, beta, film, variant, apply_silu=True, groups=32):
-    """K3 variant ``variant`` ("cluster" or "two_pass") called directly on x
+    """K3 variant ``variant`` ("cluster", "coop" or "two_pass") called directly on x
     [B, N, C]: its error against the plain version as an allclose ratio, and
     its bound."""
     import torch
@@ -474,14 +523,21 @@ def phase_k3():
     norm-site shapes (tools/bench_fused_norm.py: batch 288, bf16, FiLM
     [288, C] f32, SiLU on), then at cases of each variant's own (the cluster
     kernel with a ragged last rank at k = 16 and k = 4, and float32 with
-    FiLM [1, C]; the two-pass kernel at a float32 flagship sample and at
-    C = 36 bf16 without FiLM or SiLU). The launch counters are set to 0
-    just before each call and read just after: each call must launch the
-    variant ``kernel_for`` picks, once, and give the same output as that
-    variant called alone, and as it gives for the samples in another order.
-    Then each variant alone against the plain version; at the site shapes
-    both variants are timed in turns (cluster, two-pass, two-pass,
-    cluster). First, the bf16 roundings (``k3_bf16_rounding``)."""
+    FiLM [1, C]; the one-read kernel at a float32 flagship sample, a ragged
+    float32 sample with FiLM [B, C] and a 9.4 MB bf16 sample; the two-pass
+    kernel at C = 36 bf16 without FiLM or SiLU and at a 75 MB float32
+    sample, beyond the one-read kernel's resident grid). The launch counters
+    are set to 0 just before each call and read just after: each call must
+    launch the variant ``kernel_for`` picks, once, and give the same output
+    as that variant called alone (a second launch: bit-equal), and as it
+    gives for the samples in another order. Then each variant alone against
+    the plain version; at the site shapes the cluster and two-pass kernels,
+    and at the float32 flagship sample the one-read and two-pass kernels,
+    are timed in turns (picked, two-pass, two-pass, picked), CUDA events
+    over back-to-back calls (``ms``: the wrapper's host time included where
+    it exceeds the kernel's), and at the float32 sample also each call's
+    device time from the profiler (``device_ms``). First, the bf16
+    roundings (``k3_bf16_rounding``)."""
     import torch
 
     from conditioned_diffusion_models_uad_torch.ops import _build
@@ -507,13 +563,17 @@ def phase_k3():
 
     names = {v: fn.__name__ for v, fn in F3.VARIANTS.items()}
     sites = [(288, 9216, 128), (288, 2304, 256), (288, 576, 256)]
+    f32_sample = (8, 9216, 128)  # a float32 flagship sample, 4.7 MB
     # (shape, dtype, film rows, silu, groups, variant kernel_for must pick)
     cases = [(s, torch.bfloat16, s[0], True, 32, "cluster") for s in sites] + [
         ((3, 9215, 128), torch.bfloat16, 3, True, 32, "cluster"),   # k 16, ragged
         ((2, 999, 256), torch.bfloat16, 0, True, 32, "cluster"),    # k 4, ragged
         ((4, 576, 128), torch.float32, 1, True, 32, "cluster"),
-        ((8, 9216, 128), torch.float32, 1, True, 32, "two_pass"),   # 4.7 MB sample
+        (f32_sample, torch.float32, 1, True, 32, "coop"),
+        ((3, 9215, 128), torch.float32, 3, True, 32, "coop"),      # ragged last tile
+        ((2, 36864, 128), torch.bfloat16, 2, True, 32, "coop"),    # beyond 16 CTAs
         ((3, 100, 36), torch.bfloat16, 0, False, 12, "two_pass"),   # C*2 % 16 != 0
+        ((1, 147456, 128), torch.float32, 1, True, 32, "two_pass"),  # beyond the grid
     ]
     recs = []
     path = {name: 0 for name in ("fused_groupnorm_silu", *names.values())}
@@ -536,7 +596,8 @@ def phase_k3():
         require(y.shape == x.shape and y.dtype == x.dtype, f"K3 {shape} output")
         require(bool(torch.isfinite(y).all()), f"K3 {shape} output not finite")
         site = shape in sites
-        variants = list(names) if site else [want]
+        in_turns = site or (shape == f32_sample and dtype == torch.float32)
+        variants = [want, "two_pass"] if in_turns else [want]
         for variant in variants:
             rec = k3_record(x, gamma, beta, film, variant, apply_silu=silu, groups=groups)
             rec["dispatch"] = want
@@ -547,11 +608,18 @@ def phase_k3():
                                plan, c, groups, dtype, torch.cuda.current_device()))
                 require(F3.cluster_smem_on_card(plan, c, groups, dtype) == plan.smem_bytes,
                         f"K3 {shape}: kernel_for's shared memory differs from the kernel's")
+            if variant == "coop":
+                rec.update(rows_per_tile=plan.rows_per_rank, tiles_per_sample=plan.tiles,
+                           smem_bytes=plan.smem_bytes, resident_blocks=plan.resident,
+                           grid=F3.coop_grid(b, plan))
+                require(F3.coop_smem_on_card(plan, c, groups, dtype) == plan.smem_bytes,
+                        f"K3 {shape}: kernel_for's shared memory differs from the kernel's")
             if variant == want:
                 require(torch.equal(y, F3.VARIANTS[variant](x, gamma, beta, film,
                                                              groups=groups,
                                                              apply_silu=silu)),
                         f"K3 {shape}: fused_groupnorm_silu differs from {rec['name']}")
+                rec["bit_equal_two_launches"] = True
                 # the samples in another order, so on other clusters and in
                 # other turns: each sample's output must not change
                 perm = torch.randperm(b, generator=g, device="cuda")
@@ -564,10 +632,17 @@ def phase_k3():
         del y
         fns = {v: (lambda fn=F3.VARIANTS[v]: fn(
             x, gamma, beta, film, groups=groups, apply_silu=silu)) for v in variants}
-        order = variants + variants[::-1]  # cluster, two-pass, two-pass, cluster
+        order = variants + variants[::-1]  # picked, two-pass, two-pass, picked
         readings = {v: [] for v in variants}
         for v in order:
-            readings[v].append(cuda_ms(fns[v], reps=20 if site else 5))
+            readings[v].append(cuda_ms(fns[v], reps=20 if in_turns else 5))
+        device = {}
+        if in_turns and not site:
+            marks = {"coop": (("gn_coop_kernel",), 1),
+                     "two_pass": (("gn_stats_kernel", "gn_apply_kernel"), 2)}
+            for v in order:
+                device.setdefault(v, []).append(profiled_kernel_ms(
+                    fns[v], marks[v][0], reps=100, per_call=marks[v][1]))
         plain_ms = cuda_ms(lambda: F3.groupnorm_silu_reference(
             x, gamma, beta, film, groups=groups, apply_silu=silu), reps=3, warmup=1)
         library_ms = _k3_library_ms(x, gamma, beta, groups)
@@ -576,6 +651,9 @@ def phase_k3():
                        plain_ms=plain_ms, library_ms=library_ms,
                        library_call="F.group_norm, channels_last (GN + affine only)"
                        if library_ms is not None else None)
+            if v in device:
+                rec.update(device_ms=sum(device[v]) / len(device[v]),
+                           device_ms_readings=device[v])
         del x, fns
         torch.cuda.empty_cache()
     for rec in recs:
@@ -595,11 +673,16 @@ def phase_k3():
     # each variant's record in the kernels line is at a shape its dispatch
     # took, and its launches are counted over the calls ``dispatched`` lists
     out = {"cluster": rec_of("cluster", sites[0], "bfloat16"),
-           "two_pass": rec_of("two_pass", (8, 9216, 128), "float32")}
+           "coop": rec_of("coop", f32_sample, "float32"),
+           "two_pass": rec_of("two_pass", f32_sample, "float32")}
     out["two_pass"]["at_flagship_bf16_in_turns"] = {
         key: rec_of("two_pass", sites[0], "bfloat16")[key] for key in (
             "shape", "dtype", "max_abs_err", "allclose_ratio", "ms", "ms_readings",
             "plain_ms", "bound_ms", "library_ms")}
+    out["coop"]["at_bf16_sample"] = {
+        key: rec_of("coop", (2, 36864, 128), "bfloat16")[key] for key in (
+            "shape", "dtype", "max_abs_err", "allclose_ratio", "ms", "plain_ms",
+            "bound_ms", "library_ms")}
     for v, rec in out.items():
         rec["launches"] = path[names[v]]
         rec["launches_counted_over"] = dispatched[v]
@@ -610,10 +693,11 @@ def kernel_kind(name: str) -> str:
     """Coarse class of a CUDA kernel, from its name."""
     low = name.lower()
     for kind, marks in (("K2 attention", ("attention_fwd_kernel",
-                                          "attention_mma_fwd_kernel")),
+                                          "attention_mma_fwd_kernel",
+                                          "attention_mma_long_fwd_kernel")),
                         ("K1 noise", ("fractal_noise_kernel",)),
-                        ("K3 norm", ("gn_cluster_kernel", "gn_stats_kernel",
-                                     "gn_apply_kernel")),
+                        ("K3 norm", ("gn_cluster_kernel", "gn_coop_kernel",
+                                     "gn_stats_kernel", "gn_apply_kernel")),
                         ("upsample/pool", ("upsample", "pool")),
                         ("sort/select", ("sort", "radix", "median", "kthvalue")),
                         ("scan", ("scan", "cumsum", "cummax", "cummin")),
@@ -631,25 +715,29 @@ def kernel_kind(name: str) -> str:
 
 def _launch_counters():
     """Every wrapper's launch counter; ``fused_attention`` counts the launches
-    of both K2 variants and ``fused_groupnorm_silu`` those of both K3
-    variants, each of which also has its own."""
+    of every K2 variant and ``fused_groupnorm_silu`` those of every K3
+    variant, each of which also has its own."""
     from conditioned_diffusion_models_uad_torch.ops.attention import (
         attention_fwd_mma,
+        attention_fwd_mma_long,
         attention_fwd_scalar,
         fused_attention,
     )
     from conditioned_diffusion_models_uad_torch.ops.fused_norm import (
         fused_groupnorm_silu,
         fused_groupnorm_silu_cluster,
+        fused_groupnorm_silu_coop,
         fused_groupnorm_silu_two_pass,
     )
     from conditioned_diffusion_models_uad_torch.ops.simplex_hash import fractal_noise_2d
 
     return {"fractal_noise_2d": fractal_noise_2d, "fused_attention": fused_attention,
             "attention_fwd_mma": attention_fwd_mma,
+            "attention_fwd_mma_long": attention_fwd_mma_long,
             "attention_fwd_scalar": attention_fwd_scalar,
             "fused_groupnorm_silu": fused_groupnorm_silu,
             "fused_groupnorm_silu_cluster": fused_groupnorm_silu_cluster,
+            "fused_groupnorm_silu_coop": fused_groupnorm_silu_coop,
             "fused_groupnorm_silu_two_pass": fused_groupnorm_silu_two_pass}
 
 
@@ -799,8 +887,8 @@ def phase_full_size():
     return launches
 
 
-def _eval_subjects(n, seed, lesion):
-    """``n`` synthetic subjects at EVAL_SHAPE from a torch seed, as host
+def _eval_subjects(n, seed, lesion, shape=EVAL_SHAPE):
+    """``n`` synthetic subjects at ``shape`` from a torch seed, as host
     arrays like the loader's: vol = vol_orig in [0, 1] inside an ellipsoid
     brain mask; on a lesion set one or two brighter spherical lesions of
     ~260-700 voxels, on a healthy set an all-zero seg."""
@@ -808,8 +896,8 @@ def _eval_subjects(n, seed, lesion):
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(seed)
-    h, w, d = EVAL_SHAPE
-    ii, jj, kk = torch.meshgrid(*(torch.arange(s, dtype=torch.float32) for s in EVAL_SHAPE),
+    h, w, d = shape
+    ii, jj, kk = torch.meshgrid(*(torch.arange(s, dtype=torch.float32) for s in shape),
                                 indexing="ij")
     brain = (((ii - (h - 1) / 2) / (0.42 * h)) ** 2 + ((jj - (w - 1) / 2) / (0.36 * w)) ** 2
              + ((kk - (d - 1) / 2) / (0.45 * d)) ** 2) <= 1.0
@@ -818,15 +906,15 @@ def _eval_subjects(n, seed, lesion):
         tissue = F.avg_pool3d(torch.rand((1, 1, h, w, d), generator=g), 3, 1, 1,
                               count_include_pad=False)[0, 0]
         vol = brain * (0.2 + tissue)
-        seg = torch.zeros(EVAL_SHAPE, dtype=torch.bool)
+        seg = torch.zeros(shape, dtype=torch.bool)
         if lesion:
             for _ in range(1 + int(torch.randint(0, 2, (1,), generator=g))):
                 r = 4.0 + 1.5 * float(torch.rand(1, generator=g))
                 c = [int(torch.randint(int(0.35 * s), int(0.65 * s), (1,), generator=g))
-                     for s in EVAL_SHAPE]
+                     for s in shape]
                 seg |= ((ii - c[0]) ** 2 + (jj - c[1]) ** 2 + (kk - c[2]) ** 2) <= r * r
             seg &= brain
-            vol = torch.where(seg, 0.85 + 0.15 * torch.rand(EVAL_SHAPE, generator=g), vol)
+            vol = torch.where(seg, 0.85 + 0.15 * torch.rand(shape, generator=g), vol)
         subs.append({"vol": vol.numpy(), "vol_orig": vol.numpy(),
                      "mask_orig": brain.float().numpy(), "seg_orig": seg.float().numpy(),
                      "ID": f"{'lesion' if lesion else 'healthy'}{seed}_{i}",
@@ -1199,13 +1287,13 @@ def phase_eval_full_size():
     return runs["device_fast"]
 
 
-def _train_setup(b, device, seed):
-    """Random volumes [8, 96, 96, 40] on ``device``, one batch's slice
-    indices, and the generator that made them."""
+def _train_setup(b, device, seed, hw=(96, 96)):
+    """Random volumes [8, *hw, 40] on ``device``, one batch's slice indices,
+    and the generator that made them."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    vols = torch.rand((8, 96, 96, 40), generator=g, device=device)
+    vols = torch.rand((8, *hw, 40), generator=g, device=device)
     vi = torch.randint(0, 8, (b,), generator=g, device=device)
     si = torch.randint(0, 40, (b,), generator=g, device=device)
     return (vols, None), vi, si, g
@@ -1309,7 +1397,7 @@ def phase_train_correctness():
 def _train_step_numbers(task, b, seed, profile_file, n_learn=50, reps=20, augment=True,
                         n_prof=3, n_parts=5):
     """The train step of ``task`` at batch ``b`` on the card, slices gathered
-    from random volumes with aug_intensity (``augment='full'``: the full set,
+    from random volumes at the task's image size with aug_intensity (``augment='full'``: the full set,
     on the slices and their masks): 3 warm-up steps, then s/step over
     ``reps`` (the launch counters set to 0 just before them and read just
     after), layer ms between CUDA events over 5, a profiled window of
@@ -1329,7 +1417,7 @@ def _train_step_numbers(task, b, seed, profile_file, n_learn=50, reps=20, augmen
     )
 
     opt = make_optimizer(task)
-    data, vi, si, g = _train_setup(b, "cuda", seed)
+    data, vi, si, g = _train_setup(b, "cuda", seed, tuple(task.cfg.image_hw))
     if augment == "full":
         data = (data[0], data[0] > 0.5)
 
@@ -1787,6 +1875,162 @@ def phase_ddpm_f32_full_size():
         require(all(math.isfinite(r[k]) for k in ("auprc", "best_dice", "aux_loss")),
                 f"DDPM float32 eval rows not finite: {r}")
     require(math.isfinite(train["s_per_step"]), "DDPM float32 step")
+    return per_step, eval_launches
+
+
+# the full-resolution cDDPM: configs/datamodule/IXI.yaml image_dim with
+# datamodule.rescale_factor=1 (no downsample), so the UNet runs at 192x192
+# and its 48x48 middle block attends over S = 2304 tokens
+FULLRES_OVERRIDES = ["datamodule.rescale_factor=1"]
+FULLRES_SHAPE = (192, 192, 100)
+FULLRES_SEQ = 2304
+FULLRES_TRAIN_BATCH = 32
+
+
+def _fullres_task():
+    """experiment=cDDPM/DDPM_cond_spark_2D with datamodule.rescale_factor=1,
+    as the port's CLI materializes it (the flagship widths, bf16, fused
+    attention, image_hw (192, 192)), from seeded weights."""
+    from conditioned_diffusion_models_uad_torch import config
+    from conditioned_diffusion_models_uad_torch.models.tasks import DDPMTask
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    cfg = config.materialize(config.compose(str(ROOT / "configs"), "cDDPM/DDPM_cond_spark_2D",
+                                            FULLRES_OVERRIDES)).model
+    require(tuple(cfg.image_hw) == FULLRES_SHAPE[:2] and cfg.dtype == "bfloat16"
+            and cfg.fused_attention, f"the full-resolution config materialized as {cfg}")
+    return randomize_(DDPMTask(cfg, device="cuda"), 0)
+
+
+def phase_fullres_full_size():
+    """The full-resolution cDDPM (``_fullres_task``: 192x192, bf16): train
+    steps at batch FULLRES_TRAIN_BATCH (s/step over 3 after 3 of warm-up, a
+    profiled window of 2), then one eval group of 2 lesion volumes at
+    FULLRES_SHAPE (100 slices padded to 104, 3 members: 312 UNet rows a
+    volume call) through ``batch_call_scored`` after a warm-up group, and
+    that group under the profiler. A forward hook on the middle
+    ``AttentionBlock`` captures the warm-up's first volume call's qkv (it
+    must be [312, 2304, 3, 4, 64]); the kernel's output on it is held
+    against the plain version on the card at TOL_K2["bfloat16"] as the
+    tests hold K2 (allclose, atol = rtol: these outputs reach |y| >= 8,
+    where a bf16 ulp is 0.0625), and timed beside SDPA at the same qkv.
+    The launch counters are zeroed just before
+    each timed run and read just after: bf16 attention must take
+    ``attention_fwd_mma_long`` once a volume call and once a step, and no
+    other K2 variant. Reports s/step, peak memory, s a group,
+    slice-denoises/s, scored volumes/s, the idle share, kernel ms by kind
+    and K2's share. Returns the launches of a step and of the group."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from conditioned_diffusion_models_uad_torch.eval.fused import parse_packed
+    from conditioned_diffusion_models_uad_torch.eval.reconstruct import VolumeReconstructor
+    from conditioned_diffusion_models_uad_torch.ops import attention as A
+
+    task = _fullres_task()
+    train, per_step = _train_step_numbers(task, FULLRES_TRAIN_BATCH, 19,
+                                          "profile_fullres_train_step.txt", n_learn=0,
+                                          reps=3, n_prof=2, n_parts=2)
+    k2_train = train["kernel_ms_per_step_by_kind"].get("K2 attention", 0.0)
+    train["k2_kernel_share"] = k2_train / (train["profiled_kernel_ms"] / train["profiled_steps"])
+    train["card_free_gb_at_peak"] = (torch.cuda.get_device_properties(0).total_memory / 1e9
+                                     - train["peak_memory_gb"])
+    task.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    recon = VolumeReconstructor(task)
+    subs = _eval_subjects(2, 36, lesion=True, shape=FULLRES_SHAPE)
+    flags = _ddp_eval_flags(FULLRES_SHAPE)
+    seeds = _volume_seeds(task, range(len(subs)))
+    captured = []
+
+    def capture(mod, inputs, output):
+        if not captured:
+            captured.append(mod.qkv_of(inputs[0]).detach())
+
+    hook = task.unet.middle_block[1].register_forward_hook(capture)
+    torch.cuda.reset_peak_memory_stats()
+    recon.batch_call_scored(subs, flags, seeds)[1].cpu()  # warm-up, and the capture
+    hook.remove()
+    torch.cuda.synchronize()
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    _, packed = recon.batch_call_scored(subs, flags, seeds)
+    packed = packed.cpu()
+    group_s = time.perf_counter() - t0
+    eval_launches = _read_launches(counters)
+    eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        recon.batch_call_scored(subs, flags, seeds)[1].cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_events(prof)
+    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    by_kind = {}
+    for ev in kernels:
+        kind = kernel_kind(ev.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3
+    st = flags["statics"]
+    rows = [parse_packed(packed[j], FULLRES_SHAPE, recon.latent_len(), st["pack_seg"],
+                         st["pack_maps"])["scalars"] for j in range(len(subs))]
+    unet_rows = 104 * task.cfg.ensemble_size
+
+    # the kernel on the middle block's own activations
+    require(len(captured) == 1, "the middle AttentionBlock hook captured nothing")
+    qkv = captured.pop()
+    got = A.attention_fwd_mma_long(qkv).float()
+    want = attention_plain(qkv).float()
+    diff = (got - want).abs()
+    tol = TOL_K2["bfloat16"]
+    # the tests' allclose (atol = rtol = tol): on the UNet's activations the
+    # outputs reach |y| >= 8, where one bf16 ulp is 0.0625
+    ratio = (diff / (tol + tol * want.abs())).max().item()
+    q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    d = qkv.shape[-1]
+    on_activations = {
+        "shape": list(qkv.shape), "max_abs_err": diff.max().item(),
+        "allclose_ratio": ratio, "tol_atol_rtol": [tol, tol],
+        "max_abs_output": want.abs().max().item(),
+        "ms": timed_ms(lambda: A.attention_fwd_mma_long(qkv)),
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5), reps=10),
+        "library_call": "F.scaled_dot_product_attention (never called by the port)"}
+    del q, k, v, got, want, diff
+    k2_ms = by_kind.get("K2 attention", 0.0)
+    evaluation = {"volumes": len(subs), "shape": list(FULLRES_SHAPE),
+                  "unet_batch": unet_rows, "s_per_group": group_s,
+                  "slice_denoises_per_sec": unet_rows * len(subs) / group_s,
+                  "scored_volumes_per_sec": len(subs) / group_s,
+                  "peak_memory_gb": eval_peak_gb,
+                  "launches": eval_launches, "profiled_wall_ms": wall_ms,
+                  "profiled_kernel_ms": busy_ms,
+                  "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                  "kernel_ms_by_kind": by_kind, "k2_kernel_ms": k2_ms,
+                  "k2_kernel_share": k2_ms / busy_ms,
+                  "auprc": [r["auprc"] for r in rows],
+                  "best_dice": [r["best_dice"] for r in rows],
+                  "aux_loss": [r["aux_loss"] for r in rows]}
+    emit({"phase": "fullres_full_size", "nvidia_smi": nvidia_smi(),
+          "config": "experiment=cDDPM/DDPM_cond_spark_2D " + " ".join(FULLRES_OVERRIDES)
+                    + f" (image_hw {tuple(task.cfg.image_hw)}, bf16, fused attention), "
+                    "eval=device_fast scoring",
+          "train_step": train, "eval_group": evaluation,
+          "k2_on_middle_block_qkv": on_activations})
+    require(qkv.shape == (unet_rows, FULLRES_SEQ, 3, 4, 64),
+            f"the middle block's qkv is {tuple(qkv.shape)}, wanted S = {FULLRES_SEQ}")
+    require(ratio <= 1.0, f"K2 on the middle block's qkv: {on_activations}")
+    for name, per, want in (("train step", per_step, 1), ("eval group", eval_launches,
+                                                          len(subs))):
+        require(per["attention_fwd_mma_long"] == want and per["fused_attention"] == want
+                and per["attention_fwd_mma"] == 0 and per["attention_fwd_scalar"] == 0,
+                f"full-resolution {name}: K2 launches {per}, wanted {want} of "
+                "attention_fwd_mma_long")
+        require(per["fractal_noise_2d"] >= 1, f"full-resolution {name}: K1 launches {per}")
+    for r in rows:
+        require(all(math.isfinite(r[k]) for k in ("auprc", "best_dice", "aux_loss")),
+                f"full-resolution eval rows not finite: {r}")
+    require(math.isfinite(train["s_per_step"]), "full-resolution step")
     return per_step, eval_launches
 
 
@@ -3222,12 +3466,12 @@ def _ddp_full_rank(rank, steps, subs):
                       "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)}}
 
 
-def _ddp_eval_flags():
+def _ddp_eval_flags(shape=EVAL_SHAPE):
     from conditioned_diffusion_models_uad_torch.eval.harness import EvalConfig, EvalSession
 
     session = EvalSession(EvalConfig(cc_backend="device", hausdorff_backend="device"),
                           "Brats21", "val", device="cuda")
-    return session._fused_flags(EVAL_SHAPE, seg_is_host=True)
+    return session._fused_flags(shape, seg_is_host=True)
 
 
 def phase_ddp_full_size_and_eval():
@@ -3390,6 +3634,7 @@ def run_phases(gen, work: Path) -> int:
     new_phases_s = time.perf_counter() - t_new
     with paused(gen):
         ddpm_train_launches, ddpm_eval_launches = timed(phase_ddpm_f32_full_size)
+        fullres_train_launches, fullres_eval_launches = timed(phase_fullres_full_size)
     t_var = time.perf_counter()
     timed(phase_variants_correctness)
     with paused(gen):
@@ -3404,13 +3649,21 @@ def run_phases(gen, work: Path) -> int:
     ddp_correct_launches = timed(phase_ddp_correctness, work)
     ddp_train_launches, ddp_eval_launches = timed(phase_ddp_full_size_and_eval)
     phases10_s = time.perf_counter() - t_new10
-    k2_mma, k2_scalar = k2["mma"], k2["scalar"]
+    k2_mma, k2_long, k2_scalar = k2["mma"], k2["mma_long_eval"], k2["scalar"]
     for at, key_ in (("at_train_shape", "mma_train"), ("at_pddpm_eval_shape", "mma_pddpm"),
                      ("at_iterative_step_shape", "mma_iterative")):
         k2_mma[at] = {key: k2[key_][key] for key in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    k2_scalar["at_flagship_bf16"] = {key: k2["scalar_bf16"][key] for key in (
-        "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    for at, key_ in (("at_train_shape", "mma_long_train"),
+                     ("called_directly_at_576", "mma_long_576")):
+        k2_long[at] = {key: k2[key_][key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    k2_long["called_directly_at_576"]["times_faster_than_scalar_bf16"] = k2[
+        "mma_long_576"]["times_faster_than_scalar_bf16"]
+    for at, key_ in (("at_flagship_bf16", "scalar_bf16"),
+                     ("at_fullres_bf16", "scalar_bf16_fullres")):
+        k2_scalar[at] = {key: k2[key_][key] for key in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
     for at, key_ in (("at_ddpm_train_shape", "scalar_ddpm_train"),
                      ("at_ddpm_eval_shape", "scalar_ddpm_eval")):
         k2_scalar[at] = {key: k2[key_][key] for key in (
@@ -3422,10 +3675,15 @@ def run_phases(gen, work: Path) -> int:
     # takes the tensor-core kernel): its eval group's count
     k2_scalar["launches"] = ddpm_eval_launches["attention_fwd_scalar"]
     k2_scalar["launches_counted_over"] = "ddpm_f32_eval_group"
-    k3_cluster, k3_two_pass = k3["cluster"], k3["two_pass"]
+    # the long-sequence kernel's path is the full-resolution cDDPM's eval group
+    k2_long["launches"] = fullres_eval_launches["attention_fwd_mma_long"]
+    k2_long["launches_counted_over"] = "fullres_eval_group"
+    k3_cluster, k3_coop, k3_two_pass = k3["cluster"], k3["coop"], k3["two_pass"]
     for rec, name in ((k1, "fractal_noise_2d"), (k2_mma, "attention_fwd_mma"),
+                      (k2_long, "attention_fwd_mma_long"),
                       (k2_scalar, "attention_fwd_scalar"),
                       (k3_cluster, "fused_groupnorm_silu_cluster"),
+                      (k3_coop, "fused_groupnorm_silu_coop"),
                       (k3_two_pass, "fused_groupnorm_silu_two_pass")):
         rec["launches_by_path"] = {"reconstruct_call": launches[name],
                                    "train_step": train_launches[name],
@@ -3445,6 +3703,8 @@ def run_phases(gen, work: Path) -> int:
                                    "ddim_eval_from_files": files["ddim_eval_from_files"][name],
                                    "ddpm_f32_train_step": ddpm_train_launches[name],
                                    "ddpm_f32_eval_group": ddpm_eval_launches[name],
+                                   "fullres_train_step": fullres_train_launches[name],
+                                   "fullres_eval_group": fullres_eval_launches[name],
                                    **{path: counts[name] for path, counts in
                                       var_launches.items()},
                                    **{f"ddp_train_step_rank{r}": per[name]
@@ -3454,7 +3714,7 @@ def run_phases(gen, work: Path) -> int:
                                    **{f"ddp_fp32_{kind}_steps_rank{r}": per[name]
                                       for kind, ranks in ddp_correct_launches.items()
                                       for r, per in enumerate(ranks)}}
-    for rec in (k3_cluster, k3_two_pass):
+    for rec in (k3_cluster, k3_coop, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
         "attention_fwd_scalar"]
@@ -3463,7 +3723,7 @@ def run_phases(gen, work: Path) -> int:
           "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"],
           "native_io_run_from_files_and_ddp_phases_s": phases10_s,
           "phase_s": phase_s})
-    emit({"kernels": [k1, k2_mma, k2_scalar, k3_cluster, k3_two_pass]})
+    emit({"kernels": [k1, k2_mma, k2_long, k2_scalar, k3_cluster, k3_coop, k3_two_pass]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

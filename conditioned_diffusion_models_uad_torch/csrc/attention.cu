@@ -1,14 +1,13 @@
 // Exact softmax self-attention forward for the UNet middle block (kernel K2),
-// on the CUDA cores: float32 in one pass, bfloat16 beyond the tensor-core
-// variant's sequence limit in two.
+// on the CUDA cores: float32 in one pass, bfloat16 in two.
 //
 // Replaces the Pallas TPU kernel
 //   conditioned_diffusion_models_uad_tpu/ops/attention_pallas.py
 //   fused_attention -> _fused_attention_fwd_impl (kernel _attn_kernel).
 //
-// ops/attention.py::kernel_for sends it float32 qkv, and bfloat16 qkv whose S
-// exceeds what the tensor-core variant (attention_mma.cu) holds on chip
-// (576). bfloat16 at S <= 576, the UNet's case, goes to attention_mma.cu.
+// ops/attention.py::kernel_for sends it float32 qkv. bfloat16 goes to the
+// tensor-core kernels (attention_mma.cu up to S = 576, attention_mma_long.cu
+// beyond); the bfloat16 mode here is called only directly, for comparison.
 //
 // Computes, for qkv [B, S, 3, H, D] (bfloat16 or float32) -> out [B, S, H, D]:
 //   q, k scaled by D^-1/4 in the input dtype; logits q.k^T in float32;

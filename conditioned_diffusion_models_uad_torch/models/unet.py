@@ -244,14 +244,21 @@ class AttentionBlock(nn.Module):
             "perm", torch.from_numpy(qkv_permutation(channels, heads)), persistent=False
         )
 
+    def qkv_of(self, x):
+        """The attention's input for x [B, C, H, W]: qkv [B, H*W, 3, heads,
+        C/heads] in x's dtype."""
+        b, c, hh, ww = x.shape
+        dt = x.dtype
+        tokens = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        w = self.qkv.weight[:, :, 0][self.perm].to(dt)
+        qkv = F.linear(tokens, w, self.qkv.bias[self.perm].to(dt))
+        return qkv.reshape(b, hh * ww, 3, self.heads, c // self.heads)
+
     def forward(self, x):
         b, c, hh, ww = x.shape
         s = hh * ww
         dt = x.dtype
-        tokens = self.norm(x).permute(0, 2, 3, 1).reshape(b, s, c)
-        w = self.qkv.weight[:, :, 0][self.perm].to(dt)
-        qkv = F.linear(tokens, w, self.qkv.bias[self.perm].to(dt))
-        qkv = qkv.reshape(b, s, 3, self.heads, c // self.heads)
+        qkv = self.qkv_of(x)
         if self.fused:
             out = fused_attention(qkv)
         else:

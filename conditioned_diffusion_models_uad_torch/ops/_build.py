@@ -32,6 +32,7 @@ SOURCES: Dict[str, list] = {
     "simplex_noise": ["-fmad=false"],
     "attention": [],
     "attention_mma": [],
+    "attention_mma_long": [],
     "fused_norm": [],
 }
 

@@ -1,7 +1,7 @@
 """Times variants of the hand-written kernels against the shipped ones, in
 turns, on one card.
 
-    python -m conditioned_diffusion_models_uad_torch.utils.kernel_variants [k1] [k2] [k3]
+    python -m conditioned_diffusion_models_uad_torch.utils.kernel_variants [k1] [k2] [k2long] [k3]
 
 A variant is a library's source, ``csrc/<library>.cu``, with a few textual
 changes (``VARIANTS[library][name]``), built with the library's nvcc flags
@@ -18,6 +18,9 @@ and power limit:
   field equals the shipped kernel's bit for bit;
 - K2 (``attention_mma``): ms (CUDA events) at qkv [576, 576, 3, 4, 64] bf16
   (eval) and [32, 576, 3, 4, 64] (train);
+- K2 beyond S = 576 (``attention_mma_long``, ``k2long``): ms (CUDA events)
+  at qkv [312, 2304, 3, 4, 64] bf16 (a full-resolution eval volume),
+  [32, 2304, 3, 4, 64] (its train step) and [576, 576, 3, 4, 64];
 - K3 (``fused_norm``): ms (CUDA events) of the cluster kernel, the two-pass
   kernel and the variants at the UNet's three norm-site shapes (bf16, FiLM
   [288, C], SiLU on), whether each output equals the shipped cluster
@@ -253,6 +256,23 @@ extern "C" int fused_groupnorm_cluster_smem("""),
 }
 
 
+# the long-sequence K2 kernel's layout: query rows a warp, warps, key tile,
+# ring depth, blocks an SM it is built for
+K2_LONG_VARIANTS = {
+    # 16 query rows a warp (a 64-row tile): half the registers, three blocks
+    # an SM, but every K and V fragment feeds one MMA, not two
+    "mt1": [("constexpr int kMT = 2;", "constexpr int kMT = 1;"),
+            ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 3)")],
+    # 8 warps (a 256-row query tile, one block an SM): half the L2 reads
+    "warps8": [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
+               ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")],
+    # tiles of 32 keys: half the logit registers, twice the barriers
+    "bk32": [("constexpr int kBK = 64; ", "constexpr int kBK = 32; ")],
+    # two and four ring stages
+    "stages2": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    "stages4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+}
+
 _K1_CHOICE = "  if ((long long)n * h * w >= kOneLanePixels)\n"
 _K1_SPLIT = "  return (int)launch<8>(seeds, out, n, h, w, octaves, oc, st);"
 
@@ -273,7 +293,7 @@ K1_VARIANTS = {
 }
 
 VARIANTS = {"simplex_noise": K1_VARIANTS, "attention_mma": K2_VARIANTS,
-            "fused_norm": K3_VARIANTS}
+            "attention_mma_long": K2_LONG_VARIANTS, "fused_norm": K3_VARIANTS}
 
 
 def apply_changes(src: str, changes) -> Optional[str]:
@@ -408,6 +428,42 @@ def k2_main(card) -> None:
         torch.cuda.empty_cache()
 
 
+def _k2_long_caller(lib):
+    fn = _fn(lib, "attention_mma_long_fwd",
+             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+    def call(qkv):
+        b, s, _, h, d = qkv.shape
+        out = torch.empty((b, s, h, d), dtype=qkv.dtype, device=qkv.device)
+        _build.check(fn(qkv.data_ptr(), out.data_ptr(), b, s, h, d,
+                        A.qk_scale(d, qkv.dtype),
+                        torch.cuda.current_stream(qkv.device).cuda_stream),
+                     "attention_mma_long_fwd variant launch")
+        return out
+    return call
+
+
+def k2long_main(card) -> None:
+    libs, skipped = build_variants("attention_mma_long")
+    kernels = {"shipped": A.attention_fwd_mma_long}
+    kernels.update({name: _k2_long_caller(lib) for name, lib in libs.items()})
+    g = torch.Generator().manual_seed(1)
+    for shape in ((312, 2304, 3, 4, 64), (32, 2304, 3, 4, 64), (576, 576, 3, 4, 64)):
+        qkv = torch.randn(shape, generator=g).to(torch.bfloat16).cuda()
+        # the plain version in batch chunks of 32 ([32, 4, S, S] f32 logits)
+        want = torch.cat([A.attention_reference(qkv[i:i + 32]).float()
+                          for i in range(0, shape[0], 32)])
+        ms = _in_turns(kernels, lambda fn: cuda_ms(lambda: fn(qkv), reps=10, warmup=2))
+        err = {name: (fn(qkv).float() - want).abs().max().item()
+               for name, fn in kernels.items()}
+        print(json.dumps({"kernel": "K2 long", "shape": list(shape), "ms": ms,
+                          "max_abs_err": err, "skipped": skipped, "nvidia_smi": card}),
+              flush=True)
+        del qkv, want
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------- #
 # K3
 # --------------------------------------------------------------------------- #
@@ -485,7 +541,7 @@ def k3_main(card) -> None:
 
 
 def main(argv=None) -> None:
-    runs = {"k1": k1_main, "k2": k2_main, "k3": k3_main}
+    runs = {"k1": k1_main, "k2": k2_main, "k2long": k2long_main, "k3": k3_main}
     picked = (sys.argv[1:] if argv is None else argv) or list(runs)
     if any(p not in runs for p in picked):
         raise SystemExit(f"kernel_variants: pick from {list(runs)}, got {picked}")

@@ -33,13 +33,13 @@ def kernel_events(prof):
             and not getattr(ev, "is_user_annotation", False)]
 
 
-def profiled_kernel_ms(fn, marks, reps: int = 200) -> float:
-    """Mean device milliseconds per launch of the CUDA kernels whose names
-    hold one of ``marks``, from torch.profiler over ``reps`` calls of ``fn``
-    (each call launching one such kernel; the mean is over the launches the
-    profiler recorded, which may drop some): the kernels' own time, without
-    the host's launch cost. Raises if it recorded none, or more than one a
-    call."""
+def profiled_kernel_ms(fn, marks, reps: int = 200, per_call: int = 1) -> float:
+    """Mean device milliseconds per call of ``fn`` in the CUDA kernels whose
+    names hold one of ``marks``, from torch.profiler over ``reps`` calls
+    (each call launching ``per_call`` such kernels; the mean is over the
+    launches the profiler recorded, which may drop some): the kernels' own
+    time, without the host's launch cost. Raises if it recorded none, or
+    more than ``per_call`` a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -50,9 +50,9 @@ def profiled_kernel_ms(fn, marks, reps: int = 200) -> float:
         torch.cuda.synchronize()
     evs = [ev for ev in kernel_events(prof) if any(m in ev.key for m in marks)]
     count = sum(ev.count for ev in evs)
-    if not 0 < count <= reps:
+    if not 0 < count <= reps * per_call:
         raise RuntimeError(f"profiler recorded {count} launches of {marks} in {reps} calls")
-    return sum(ev.self_device_time_total for ev in evs) / 1e3 / count
+    return sum(ev.self_device_time_total for ev in evs) / 1e3 / count * per_call
 
 
 def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:

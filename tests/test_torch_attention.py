@@ -2,8 +2,9 @@
 ops/attention.py) against the JAX package's plain twin and its Pallas kernel
 in interpret mode, on the CPU; the autograd Function's backward against
 jax.grad of attention_reference; the rule that picks the card's K2 variant;
-and a float32 emulation of the tensor-core kernel's arithmetic
-(csrc/attention_mma.cu) against the Pallas kernel.
+and float32 emulations of the tensor-core kernels' arithmetic
+(csrc/attention_mma.cu, csrc/attention_mma_long.cu) against the Pallas
+kernel.
 
 Tolerances are those tests/test_attention_pallas.py holds the TPU kernel to:
 fp32 2e-6 (the same float32 ops, summed in another order) and bf16 2e-2
@@ -18,6 +19,7 @@ from conditioned_diffusion_models_uad_torch.ops.attention import (
     MMA_MAX_SEQ,
     _check_qkv,
     attention_fwd_mma,
+    attention_fwd_mma_long,
     attention_fwd_scalar,
     attention_reference,
     fused_attention,
@@ -88,7 +90,9 @@ def test_backward_matches_jax_grad():
     (torch.bfloat16, 576, 64, "mma"),
     (torch.bfloat16, 100, 64, "mma"),
     (torch.bfloat16, 1, 32, "mma"),
-    (torch.bfloat16, MMA_MAX_SEQ + 1, 64, "scalar"),
+    (torch.bfloat16, MMA_MAX_SEQ + 1, 64, "mma_long"),
+    (torch.bfloat16, 2304, 64, "mma_long"),  # the full-resolution middle block
+    (torch.bfloat16, 2401, 32, "mma_long"),
     (torch.float32, 576, 64, "scalar"),
     (torch.float32, 4096, 32, "scalar"),
 ])
@@ -125,7 +129,20 @@ def test_mma_check_raises_on_misaligned_or_unfit_qkv():
         _check_qkv(aligned.transpose(0, 1), "scalar")
 
 
-@pytest.mark.parametrize("wrapper", [attention_fwd_mma, attention_fwd_scalar])
+def test_mma_long_check_takes_bf16_of_any_length():
+    for s in (1, 100, MMA_MAX_SEQ, MMA_MAX_SEQ + 1, 2304):
+        _check_qkv(torch.zeros((1, s, 3, 1, 64), dtype=torch.bfloat16), "mma_long")
+    with pytest.raises(ValueError):
+        _check_qkv(torch.zeros((1, 2304, 3, 1, 64)), "mma_long")  # float32
+    with pytest.raises(ValueError):
+        _check_qkv(torch.zeros((1, 2304, 3, 1, 48), dtype=torch.bfloat16), "mma_long")
+    shifted = torch.zeros(2304 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 2304, 3, 1, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _check_qkv(shifted, "mma_long")
+
+
+@pytest.mark.parametrize("wrapper", [attention_fwd_mma, attention_fwd_mma_long,
+                                     attention_fwd_scalar])
 def test_variant_on_cpu_is_the_plain_version_and_not_counted(wrapper):
     x = torch.from_numpy(_qkv((2, 64, 2, 32), seed=5)).to(torch.bfloat16)
     before = (wrapper.launches, fused_attention.launches)
@@ -185,12 +202,74 @@ def test_mma_emulation_matches_plain_version(shape):
     _compare(mma_kernel_emulation(x), attention_reference(x).float().numpy(), "bfloat16")
 
 
+KEY_TILE_LONG = 64  # keys a tile of csrc/attention_mma_long.cu
+
+
+def mma_long_kernel_emulation(qkv: torch.Tensor) -> torch.Tensor:
+    """csrc/attention_mma_long.cu's arithmetic in float32 on the CPU, for
+    bf16 qkv [B, S, 3, H, D]: q*s and k*s rounded to bf16; pass 1 over tiles
+    of 64 keys, each of a quad's four threads keeping a running max and a
+    rescaled running sum over its own columns (keys 2t, 2t + 1 of every 8),
+    the four merged after the last tile; pass 2 the weights
+    exp2((s - m) * log2e) times the reciprocal of the sum, rounded to bf16,
+    times V; the output rounded to bf16."""
+    d, s = qkv.shape[-1], qkv.shape[1]
+    scale = torch.tensor(qk_scale(d, torch.bfloat16), dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # [B, H, S, D]
+    logits = (q * scale).float() @ (k * scale).float().transpose(-1, -2)
+    lane = (torch.arange(s) % 8) // 2  # the quad thread that holds each key
+    ms, ls = [], []
+    for t in range(4):
+        cols = logits.masked_fill(lane != t, -float("inf"))
+        m = torch.full(logits.shape[:-1], -float("inf"))
+        l = torch.zeros(logits.shape[:-1])
+        for k0 in range(0, s, KEY_TILE_LONG):
+            tile = cols[..., k0:k0 + KEY_TILE_LONG]
+            mn = torch.maximum(m, tile.amax(-1))
+            live = mn > -float("inf")
+            safe = torch.where(live, mn, torch.zeros_like(mn))
+            step = l * torch.exp2((m - safe) * LOG2E) + torch.exp2(
+                (tile - safe[..., None]) * LOG2E).sum(-1)
+            l = torch.where(live, step, l)
+            m = torch.where(live, mn, m)
+        ms.append(m)
+        ls.append(l)
+    mq = torch.stack(ms).amax(0)
+    total = sum(l * torch.exp2((m - mq) * LOG2E) for m, l in zip(ms, ls))
+    weights = (torch.exp2((logits - mq[..., None]) * LOG2E)
+               * (1.0 / total)[..., None]).to(torch.bfloat16).float()
+    return (weights @ v.float()).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1, 700, 2, 64), (2, 130, 1, 32)])
+def test_mma_long_emulation_matches_pallas_interpret(shape):
+    x = _qkv(shape, seed=10)
+    got = mma_long_kernel_emulation(torch.from_numpy(x).to(torch.bfloat16))
+    want = jattn.fused_attention(jnp.asarray(x, jnp.bfloat16), True).astype(jnp.float32)
+    assert got.shape == (shape[0], shape[1], shape[2], shape[3])
+    _compare(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("shape", [(1, 2401, 1, 64), (2, 1, 1, 32), (1, 65, 2, 64)])
+def test_mma_long_emulation_matches_plain_version(shape):
+    x = torch.from_numpy(_qkv(shape, seed=11)).to(torch.bfloat16)
+    _compare(mma_long_kernel_emulation(x), attention_reference(x).float().numpy(), "bfloat16")
+
+
 @pytest.mark.parametrize("name", sorted(kernel_variants.K2_VARIANTS))
 def test_k2_variants_apply_to_the_shipped_source(name):
     src = kernel_variants.variant_source("attention_mma", name)
     assert src is not None
     assert src != (kernel_variants._build.CSRC / "attention_mma.cu").read_text()
     assert "attention_mma_fwd_kernel" in src
+
+
+@pytest.mark.parametrize("name", sorted(kernel_variants.K2_LONG_VARIANTS))
+def test_k2_long_variants_apply_to_the_shipped_source(name):
+    src = kernel_variants.variant_source("attention_mma_long", name)
+    assert src is not None
+    assert src != (kernel_variants._build.CSRC / "attention_mma_long.cu").read_text()
+    assert "attention_mma_long_fwd_kernel" in src
 
 
 KEY_TILE = 64  # keys a shared-memory tile of csrc/attention.cu

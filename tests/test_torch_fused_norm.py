@@ -108,7 +108,8 @@ def test_cpu_is_the_plain_version_and_not_counted():
 
 
 # --------------------------------------------------------------------------- #
-# K3's two variants: the plan, and the cluster kernel's arithmetic
+# K3's three variants: the plan, and the cluster and one-read kernels'
+# arithmetic
 # --------------------------------------------------------------------------- #
 from conditioned_diffusion_models_uad_torch.ops import fused_norm as F3  # noqa: E402
 
@@ -128,14 +129,78 @@ def test_kernel_for_takes_the_unet_sites_in_one_cluster_pass(n, c, k):
 
 
 @pytest.mark.parametrize("dtype,n,c,groups,aligned", [
-    (torch.float32, 9216, 128, 32, True),   # a 4.7 MB sample
+    (torch.float32, 16 * 9216, 128, 32, True),  # a 75 MB sample: beyond the grid
     (torch.bfloat16, 100, 36, 12, True),    # C*2 % 16 != 0
     (torch.bfloat16, 9216, 128, 32, False),  # x not 16-byte aligned
-    (torch.bfloat16, 64, 1024, 32, True),   # C > 512: a thread a channel
-    (torch.bfloat16, 4 * 9216, 128, 32, True),  # beyond 16 CTAs
+    (torch.bfloat16, 64, 4096, 32, True),   # 512 slices a row: beyond a one-read block
+    (torch.bfloat16, 32 * 9216, 128, 32, True),  # a 75 MB bf16 sample
 ])
 def test_kernel_for_gives_the_rest_to_the_two_pass_kernel(dtype, n, c, groups, aligned):
     assert F3.kernel_for(dtype, n, c, groups, aligned=aligned) == F3.K3Plan("two_pass")
+
+
+@pytest.mark.parametrize("dtype,n,c,rows,tiles,resident", [
+    (torch.float32, 9216, 128, 96, 96, 396),     # a 4.7 MB float32 flagship sample
+    (torch.bfloat16, 4 * 9216, 128, 192, 192, 396),  # 9.4 MB: beyond 16 CTAs
+    (torch.bfloat16, 64, 1024, 22, 3, 264),      # C > 512: no cluster kernel
+    (torch.float32, 9215, 128, 96, 96, 396),     # the last tile one row short
+])
+def test_kernel_for_gives_resident_samples_to_the_one_read_kernel(dtype, n, c, rows, tiles,
+                                                                    resident):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = F3.kernel_for(dtype, n, c, 32)
+    assert plan == F3.K3Plan("coop", 0, rows, F3.coop_smem(rows, c, 32, itemsize), tiles,
+                             resident)
+    assert plan.smem_bytes <= F3.MAX_SMEM and tiles <= resident
+    assert (rows * c * itemsize <= F3.COOP_TILE_BYTES
+            and F3.coop_threads(c, itemsize) <= F3.COOP_THREADS)
+    # one block fewer than the sample's tiles at once: the two-launch kernels
+    fewer = F3.kernel_for(dtype, n, c, 32, resident=lambda p, threads: p.tiles - 1)
+    assert fewer == F3.K3Plan("two_pass")
+    exact = F3.kernel_for(dtype, n, c, 32, resident=lambda p, threads: p.tiles)
+    assert exact == plan._replace(resident=tiles)
+
+
+@pytest.mark.parametrize("n,row_bytes", [(9216, 512), (9215, 512), (36864, 256), (1, 512),
+                                         (100, 4096), (64, 2048), (7, 98_304)])
+def test_coop_tiles_cover_a_sample_evenly(n, row_bytes):
+    rows, tiles = F3.coop_tiles(n, row_bytes)
+    assert rows * row_bytes <= max(F3.COOP_TILE_BYTES, row_bytes)
+    assert rows * (tiles - 1) < n <= rows * tiles  # no empty tile
+    assert rows - (n - rows * (tiles - 1)) < tiles  # the last tile short by < tiles rows
+
+
+@pytest.mark.parametrize("b,tiles,resident", [(8, 96, 396), (1, 96, 396), (3, 192, 396),
+                                              (5, 3, 264), (40, 7, 50), (2, 50, 50)])
+def test_coop_schedule_opens_every_sample_barrier(b, tiles, resident):
+    """The one-read launch's schedule, simulated: block j takes tiles j,
+    j + grid, ... in order, and a block moves past a tile only once every
+    tile of that sample has arrived. Every block must finish (no barrier
+    waits on a tile that a waiting block holds), each round of tiles holds
+    whole samples, and the grid is within what the card holds at once."""
+    plan = F3.K3Plan("coop", 0, 1, 1, tiles, resident)
+    grid = F3.coop_grid(b, plan)
+    assert 0 < grid <= resident and grid % tiles == 0 and grid <= b * tiles
+    queues = [list(range(j, b * tiles, grid)) for j in range(grid)]
+    assert sorted(t for q in queues for t in q) == list(range(b * tiles))
+    arrived = [0] * b
+    at = [0] * grid  # the index of the tile each block is at
+    waiting = [False] * grid
+    moved = True
+    while moved:
+        moved = False
+        for j, q in enumerate(queues):
+            if at[j] == len(q):
+                continue
+            s = q[at[j]] // tiles
+            if not waiting[j]:
+                arrived[s] += 1
+                waiting[j] = moved = True
+            if arrived[s] == tiles:
+                at[j] += 1
+                waiting[j] = False
+                moved = True
+    assert all(at[j] == len(q) for j, q in enumerate(queues))
 
 
 @pytest.mark.parametrize("dtype,n,c,groups,aligned", [
@@ -150,6 +215,7 @@ def test_kernel_for_raises_on_what_neither_variant_takes(dtype, n, c, groups, al
 
 
 @pytest.mark.parametrize("wrapper", [F3.fused_groupnorm_silu_cluster,
+                                     F3.fused_groupnorm_silu_coop,
                                      F3.fused_groupnorm_silu_two_pass])
 def test_variant_on_cpu_is_the_plain_version_and_not_counted(wrapper):
     x, gamma, beta, f = _torch_args(*_inputs("B", seed=4), torch.bfloat16)
@@ -225,6 +291,26 @@ def test_cluster_emulation_matches_pallas_interpret(dtype, shape, k, film, silu)
     want = jnorm._fused_pallas(jx, jg, jb, fs, fsh, groups=32, eps=1e-6,
                                apply_silu=silu, interpret=True)
     assert got.shape == shape and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **TOL_K3[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_coop_emulation_matches_pallas_interpret(dtype, monkeypatch):
+    """The one-read kernel folds per-tile partials in tile order, over the
+    tiles ``coop_tiles`` cuts (rows = ceil(n / tiles)): the cluster
+    emulation's arithmetic with a rank a tile. Tiles of 1 KB here, so that
+    a 99-row sample of 64 channels spreads over several, the last short."""
+    monkeypatch.setattr(F3, "COOP_TILE_BYTES", 1024)
+    shape = (2, 99, 64)
+    tdt, jdt = DTYPES[dtype]
+    rows, tiles = F3.coop_tiles(shape[1], shape[2] * torch.empty((), dtype=tdt).element_size())
+    assert tiles > 1 and rows == -(-shape[1] // tiles)
+    x, gamma, beta, f = _inputs("B", seed=9, shape=shape)
+    got = cluster_kernel_emulation(*_torch_args(x, gamma, beta, f, tdt), k=tiles)
+    jx, jg, jb, jf = _jax_args(x, gamma, beta, f, jdt)
+    want = jnorm._fused_pallas(jx, jg, jb, *jf, groups=32, eps=1e-6, apply_silu=True,
+                               interpret=True)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                **TOL_K3[dtype])
 
