@@ -45,6 +45,7 @@ import torch
 
 from ..parallel.mesh import all_gather_cat, pad_to_multiple, sharded, world
 from ..utils.device import DeviceLike, resolve_device, to_tensor
+from ..utils.profiling import span
 from .fused import group_eval_core
 
 __all__ = ["VolumeReconstructor", "pad_to_multiple"]
@@ -218,7 +219,8 @@ class VolumeReconstructor:
         slices, pad, depths = self._stack([s["vol"] for s in subs])
         g = len(subs)
         d = depths[0]
-        reco, aux = self._per_volume(slices, draws, g)
+        with span("eval.recon"):
+            reco, aux = self._per_volume(slices, draws, g)
         h, w = reco.shape[1], reco.shape[2]
         reco_g = reco[..., 0].reshape(g, pad, h, w)[:, :d].movedim(1, -1)  # [G, H, W, d]
         loss_g = aux["loss_per_slice"].reshape(g, pad)[:, :d].mean(dim=1)
@@ -230,7 +232,8 @@ class VolumeReconstructor:
 
         th_rec = torch.full((g,), flags["th_record"], dtype=torch.float32, device=self.device)
         th_app = torch.full((g,), flags["th_apply"], dtype=torch.float32, device=self.device)
-        return group_eval_core(
-            stacked("vol_orig"), reco_g, stacked("mask_orig"), stacked("seg_orig"),
-            th_rec, th_app, loss_g, latent_g, **flags["statics"],
-        )
+        with span("eval.score"):
+            return group_eval_core(
+                stacked("vol_orig"), reco_g, stacked("mask_orig"), stacked("seg_orig"),
+                th_rec, th_app, loss_g, latent_g, **flags["statics"],
+            )

@@ -46,6 +46,7 @@ from ..ops.patch_sampling import grid_boxes, grid_boxes_cut, paste_patches, samp
 from ..ops.simplex import make_noise_fn
 from ..utils import prng
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import span
 from .losses import l1_ae_loss, l1_error
 from .resnet import ResNetConfig, ResNetEncoder
 from .spark import (
@@ -347,16 +348,19 @@ class DDPMTask(nn.Module):
             model = functools.partial(self.unet,
                                       dropout=[m.to(self.device) for m in draws.dropout])
         x01 = batch["vol"].to(self.device).float()
-        cond = self.encode(x01, train=train)
-        noise = self._train_noise(draws.seed, tuple(x01.shape))
+        with span("task.encode"):
+            cond = self.encode(x01, train=train)
+        with span("task.noise"):
+            noise = self._train_noise(draws.seed, tuple(x01.shape))
         box_mask = None
         if cfg.patched:
             if draws.box is None:
                 raise ValueError("the patched task's draws need boxes (TrainDraws.box)")
             box_mask = box_to_mask(draws.box.to(self.device), *cfg.image_hw)
-        loss, reco = diffusion_call(self.sched, self.gd_cfg, model, x01,
-                                    t=draws.t.to(self.device), cond=cond, noise=noise,
-                                    box_mask=box_mask)
+        with span("task.unet"):
+            loss, reco = diffusion_call(self.sched, self.gd_cfg, model, x01,
+                                        t=draws.t.to(self.device), cond=cond, noise=noise,
+                                        box_mask=box_mask)
         return loss, {"reco": reco}
 
     def _eval_draws(self, draws, generator, groups, depth, keys: bool = False):
@@ -418,7 +422,8 @@ class DDPMTask(nn.Module):
         d, h, w, c = slices01.shape
         draws = self._eval_draws(seeds, generator, groups, d)
         g = draws.shape[0]
-        cond = self.encode(slices01)
+        with span("task.encode"):
+            cond = self.encode(slices01)
         latent = (cond.float() if cond is not None
                   else torch.zeros((d, 1), dtype=torch.float32, device=self.device))
         sub = (d // g, h, w, c)
@@ -429,37 +434,42 @@ class DDPMTask(nn.Module):
             x_start = normalize_to_neg_one_to_one(slices01.float())
             kw = dict(key=draws, noise_fn=self.key_noise, cond=cond,
                       start_t=cfg.test_timesteps, x_start=x_start)
-            if cfg.reco_mode == "ddim":
-                return ddim_sample(self.sched, self.gd_cfg, self.unet, tuple(slices01.shape),
-                                   sampling_timesteps=cfg.sampling_steps, **kw), aux
-            return p_sample_loop(self.sched, self.gd_cfg, self.unet, tuple(slices01.shape),
-                                 **kw), aux
+            with span("task.unet"):  # the chain draws its noise a step at a time
+                if cfg.reco_mode == "ddim":
+                    return ddim_sample(self.sched, self.gd_cfg, self.unet,
+                                       tuple(slices01.shape),
+                                       sampling_timesteps=cfg.sampling_steps, **kw), aux
+                return p_sample_loop(self.sched, self.gd_cfg, self.unet, tuple(slices01.shape),
+                                     **kw), aux
 
         e = cfg.ensemble_size
         ensemble = cfg.noise_ensemble and len(cfg.step_ensemble) > 0
-        if not self.draws_keys:
-            noises = self._noise(draws.t().reshape(-1), sub)  # [E*D, H, W, C]
-        elif ensemble:
-            noises = self.key_noise(prng.split_keys(draws, e).reshape(-1, 2), sub)
-        else:  # one field a volume straight from its key
-            noises = self.key_noise(draws, sub)
+        with span("task.noise"):
+            if not self.draws_keys:
+                noises = self._noise(draws.t().reshape(-1), sub)  # [E*D, H, W, C]
+            elif ensemble:
+                noises = self.key_noise(prng.split_keys(draws, e).reshape(-1, 2), sub)
+            else:  # one field a volume straight from its key
+                noises = self.key_noise(draws, sub)
         if ensemble:
             t_vec = torch.tensor([t - 1 for t in cfg.step_ensemble],
                                  device=self.device).repeat_interleave(d)
             imgs = slices01.repeat(e, 1, 1, 1)
             conds = None if cond is None else cond.repeat(e, 1)
-            loss_ps, reco = diffusion_call(
-                self.sched, self.gd_cfg, self.unet, imgs,
-                t=t_vec, cond=conds, noise=noises, reduce=False,
-            )
+            with span("task.unet"):
+                loss_ps, reco = diffusion_call(
+                    self.sched, self.gd_cfg, self.unet, imgs,
+                    t=t_vec, cond=conds, noise=noises, reduce=False,
+                )
             aux = {"loss_per_slice": loss_ps.reshape(e, d)[-1],
                    "latent_per_slice": latent}
             return reco.reshape(e, d, h, w, -1).mean(dim=0), aux
 
-        loss_ps, reco = diffusion_call(
-            self.sched, self.gd_cfg, self.unet, slices01,
-            t=cfg.test_timesteps - 1, cond=cond, noise=noises, reduce=False,
-        )
+        with span("task.unet"):
+            loss_ps, reco = diffusion_call(
+                self.sched, self.gd_cfg, self.unet, slices01,
+                t=cfg.test_timesteps - 1, cond=cond, noise=noises, reduce=False,
+            )
         return reco, {"loss_per_slice": loss_ps, "latent_per_slice": latent}
 
     def eval_boxes(self) -> np.ndarray:

@@ -583,45 +583,3 @@ def count_params(params) -> int:
     """Number of elements of an iterable of tensors (``module.parameters()``,
     a state_dict's values)."""
     return sum(int(p.numel()) for p in params)
-
-
-def unet_flops_per_forward(cfg: UNetConfig, image_hw: tuple) -> float:
-    """Analytic FLOP estimate for one UNet forward (conv MACs x2 + attention),
-    the JAX package's count term for term."""
-    h, w = image_hw
-    mc = cfg.model_channels
-    flops = 0.0
-
-    def conv_flops(hh, ww, cin, cout, k=3):
-        return 2.0 * hh * ww * cin * cout * k * k
-
-    ch = mc
-    flops += conv_flops(h, w, cfg.in_channels, mc)
-    hh, ww, ds = h, w, 1
-    chans = [mc]
-    for level, mult in enumerate(cfg.channel_mult):
-        for _ in range(cfg.num_res_blocks):
-            flops += conv_flops(hh, ww, ch, mult * mc) + conv_flops(hh, ww, mult * mc, mult * mc)
-            ch = mult * mc
-            chans.append(ch)
-        if level != len(cfg.channel_mult) - 1:
-            hh, ww, ds = hh // 2, ww // 2, ds * 2
-            flops += 2 * conv_flops(hh, ww, ch, ch)
-            chans.append(ch)
-    # middle
-    flops += 4 * conv_flops(hh, ww, ch, ch)
-    toks = hh * ww
-    flops += 2 * 2.0 * toks * toks * ch + 2 * 2.0 * toks * ch * (3 * ch)
-    # decoder (approximate: same conv structure with skip-concat inputs)
-    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
-        for _ in range(cfg.num_res_blocks + 1):
-            icc = chans.pop()
-            flops += conv_flops(hh, ww, ch + icc, mult * mc) + conv_flops(
-                hh, ww, mult * mc, mult * mc
-            )
-            ch = mult * mc
-        if level:
-            flops += 2 * conv_flops(hh, ww, ch, ch)
-            hh, ww = hh * 2, ww * 2
-    flops += conv_flops(h, w, ch, cfg.out_channels)
-    return flops

@@ -26,6 +26,7 @@ the per-stage group loop.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import math
@@ -52,6 +53,7 @@ from .train.checkpoint import find_run_checkpoint, load_state
 from .train.loop import Trainer
 from .utils import prng
 from .utils.prefetch import PrefetchLoader
+from .utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -187,7 +189,9 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
     score volume by volume (``session.test_step``). A short tail group is
     padded with its last volume. Returns the stage's wall seconds:
     'load' (waiting for the loader), 'recon' (dispatching reconstructions),
-    'wait' (waiting for scorer threads), 'total', and 'volumes'.
+    'wait' (waiting for scorer threads), 'total', and 'volumes'; the first
+    three are its spans ``eval.load``, ``eval.dispatch`` and ``eval.wait``
+    (``utils/profiling.py``).
 
     Within a process group every rank runs the stage on the same subjects
     in the same order: each group's reconstruction (and scoring) is split
@@ -203,10 +207,9 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
         pending: list = []
 
         def backpressure():
-            t0 = time.perf_counter()
-            while len(pending) >= n_workers:
-                pending.pop(0).result()
-            ph["wait"] += time.perf_counter() - t0
+            with span("eval.wait", into=ph, key="wait"):
+                while len(pending) >= n_workers:
+                    pending.pop(0).result()
 
         def seeds_of(group):
             idxs = [i for i, _ in group]
@@ -214,22 +217,25 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
 
         def score_group(group, diff_g, packed_g, flags, llen):
             statics = flags["statics"]
+            first = group[0][0]
             done = 0
             try:
-                buf = packed_g.cpu().numpy()  # the group's one fetch
-                for j, (i, sub) in enumerate(group):
-                    seg_orig = sub.get("seg_orig")
-                    seg_avail = bool(sub.get("seg_available", True))
-                    parsed = parse_packed(buf[j], tuple(sub["vol_orig"].shape), llen,
-                                          statics["pack_seg"], statics["pack_maps"])
-                    session.test_step_precomputed(
-                        parsed, diff_g[j], flags, seg_available=seg_avail, batch_idx=i,
-                        ID=sub.get("ID", str(i)), label_vol=sub.get("label", 0),
-                        score_fn=score_fn,
-                        data_seg=seg_orig if seg_avail and isinstance(seg_orig, np.ndarray)
-                        else None,
-                        seg_dev=_dev(sub, "seg_orig"))
-                    done = j + 1
+                with span("eval.fetch", group=first):
+                    buf = packed_g.cpu().numpy()  # the group's one fetch
+                with span("eval.commit", group=first):
+                    for j, (i, sub) in enumerate(group):
+                        seg_orig = sub.get("seg_orig")
+                        seg_avail = bool(sub.get("seg_available", True))
+                        parsed = parse_packed(buf[j], tuple(sub["vol_orig"].shape), llen,
+                                              statics["pack_seg"], statics["pack_maps"])
+                        session.test_step_precomputed(
+                            parsed, diff_g[j], flags, seg_available=seg_avail, batch_idx=i,
+                            ID=sub.get("ID", str(i)), label_vol=sub.get("label", 0),
+                            score_fn=score_fn,
+                            data_seg=seg_orig if seg_avail and isinstance(seg_orig, np.ndarray)
+                            else None,
+                            seg_dev=_dev(sub, "seg_orig"))
+                        done = j + 1
             except BaseException:
                 for i, _ in group[done:]:
                     session._abort_turn(int(i))
@@ -251,26 +257,27 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
             return True
 
         def dispatch(group):
-            t0 = time.perf_counter()
-            if fusable(group):
-                subs = [s for _, s in group]
-                flags = session._fused_flags(
-                    tuple(subs[0]["vol_orig"].shape),
-                    seg_is_host=isinstance(subs[0].get("seg_orig"), np.ndarray))
-                devs = [dict(s, **s.get("_dev", {})) for s in subs]
-                padded = devs + [devs[-1]] * (group_n - len(devs))
-                diff_g, packed_g = recon.batch_call_scored(padded, flags, seeds_of(group))
-                ph["recon"] += time.perf_counter() - t0
+            with span("eval.dispatch", into=ph, key="recon", group=group[0][0]):
+                fused = fusable(group)
+                if fused:
+                    subs = [s for _, s in group]
+                    flags = session._fused_flags(
+                        tuple(subs[0]["vol_orig"].shape),
+                        seg_is_host=isinstance(subs[0].get("seg_orig"), np.ndarray))
+                    devs = [dict(s, **s.get("_dev", {})) for s in subs]
+                    padded = devs + [devs[-1]] * (group_n - len(devs))
+                    diff_g, packed_g = recon.batch_call_scored(padded, flags, seeds_of(group))
+                else:
+                    vols = [_dev(s, "vol") for _, s in group]
+                    res = recon.batch_call(vols + [vols[-1]] * (group_n - len(vols)),
+                                           seeds_of(group))[:len(group)]
+            if fused:
                 if not scoring:
                     return
                 backpressure()
                 pending.append(scorer.submit(score_group, group, diff_g, packed_g, flags,
                                              recon.latent_len()))
                 return
-            vols = [_dev(s, "vol") for _, s in group]
-            res = recon.batch_call(vols + [vols[-1]] * (group_n - len(vols)),
-                                   seeds_of(group))[:len(group)]
-            ph["recon"] += time.perf_counter() - t0
             if not scoring:
                 return
             for (i, sub), (reco, raux) in zip(group, res):
@@ -290,9 +297,12 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
         # each volume's rows land in dataset order through the session's
         # commit reorder buffer
         buckets: dict = {}
-        t_mark = time.perf_counter()
-        for i, sub in enumerate(subjects):
-            ph["load"] += time.perf_counter() - t_mark
+        feed = iter(subjects)
+        for i in itertools.count():
+            with span("eval.load", into=ph, key="load"):
+                sub = next(feed, None)
+            if sub is None:
+                break
             ph["volumes"] += 1
             sig = (tuple(sub["vol_orig"].shape), tuple(sub["vol"].shape))
             bucket = buckets.setdefault(sig, [])
@@ -300,14 +310,12 @@ def run_stage(session: EvalSession, recon: VolumeReconstructor, subjects: Iterab
             if len(bucket) >= group_n:
                 dispatch(bucket)
                 buckets[sig] = []
-            t_mark = time.perf_counter()
         for bucket in buckets.values():
             if bucket:
                 dispatch(bucket)
-        t0 = time.perf_counter()
-        for f in pending:
-            f.result()
-        ph["wait"] += time.perf_counter() - t0
+        with span("eval.wait", into=ph, key="wait"):
+            for f in pending:
+                f.result()
     ph["total"] = time.perf_counter() - t_start
     return ph
 

@@ -46,6 +46,7 @@ from ..parallel.mesh import (
     sharded,
     world,
 )
+from ..utils.profiling import span
 from .checkpoint import FoldCheckpointer, to_cpu, variables_only
 
 # (vols [V, H, W, D], masks [V, H, W, D] or None), both on the task's device
@@ -71,14 +72,15 @@ def gathered_batch(data: Data, vol_idx, slice_idx, aug=None) -> dict:
     'vol'; a ``FullAugDraws`` applies the full set to 'vol' and 'mask'
     together (the spatial families warp both)."""
     vols, masks = data
-    vi = torch.as_tensor(vol_idx, device=vols.device).long()
-    si = torch.as_tensor(slice_idx, device=vols.device).long()
-    v = vols[vi, :, :, si][..., None].float()
-    m = None if masks is None else masks[vi, :, :, si][..., None]
-    if isinstance(aug, FullAugDraws):
-        v, m = full_augment_apply(v, m, aug.to(v.device))
-    elif aug is not None:
-        v = aug_intensity_apply(v, aug.to(v.device))
+    with span("train.gather"):
+        vi = torch.as_tensor(vol_idx, device=vols.device).long()
+        si = torch.as_tensor(slice_idx, device=vols.device).long()
+        v = vols[vi, :, :, si][..., None].float()
+        m = None if masks is None else masks[vi, :, :, si][..., None]
+        if isinstance(aug, FullAugDraws):
+            v, m = full_augment_apply(v, m, aug.to(v.device))
+        elif aug is not None:
+            v = aug_intensity_apply(v, aug.to(v.device))
     batch = {"vol": v}
     if m is not None:
         batch["mask"] = m
@@ -106,17 +108,23 @@ def train_step(task, opt: torch.optim.Optimizer, data: Data, vol_idx, slice_idx,
     (``shard``, ``shard_draws``), the BatchNorm statistics are the global
     batch's, the gradients are all-reduced and averaged before the optimizer
     step, and the returned loss is the global mean, so the step is the
-    one-process step over the whole batch."""
-    rank, size = world()
-    vol_idx, slice_idx, draws = _rank_rows(vol_idx, slice_idx, draws)
-    batch = gathered_batch(data, vol_idx, slice_idx, draws.aug)
-    opt.zero_grad(set_to_none=True)
-    with sharded(task, rank, size):
-        loss, _ = task.loss(batch, draws, train=True)
-    loss.backward()
-    all_reduce_grads(task)
-    opt.step()
-    return global_mean(loss.detach())
+    one-process step over the whole batch. Its phases are spans
+    (``utils/profiling.py``)."""
+    with span("train.step"):
+        rank, size = world()
+        vol_idx, slice_idx, draws = _rank_rows(vol_idx, slice_idx, draws)
+        batch = gathered_batch(data, vol_idx, slice_idx, draws.aug)
+        opt.zero_grad(set_to_none=True)
+        with span("train.forward"), sharded(task, rank, size):
+            loss, _ = task.loss(batch, draws, train=True)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.all_reduce"):
+            all_reduce_grads(task)
+            loss = global_mean(loss.detach())
+        with span("train.optimizer"):
+            opt.step()
+        return loss
 
 
 @torch.no_grad()

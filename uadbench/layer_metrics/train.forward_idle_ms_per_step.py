@@ -1,0 +1,8 @@
+"""Device idle ms a step inside the program's main-thread ``train.forward``
+spans (``task.loss``), in the traced slice."""
+from uadbench.harness import program_spans
+
+
+def read(ctx):
+    ms = program_spans.idle_ms(ctx.trace, "train.forward")
+    return None if ms is None else ms / (ctx.traced_units / ctx.driver.p["batch"])
