@@ -9,7 +9,9 @@ then drives the port's paths (experiment cDDPM/DDPM_cond_spark_2D): the
 flagship single-shot volume reconstruction (``DDPMTask.reconstruct_with_aux``;
 bf16 attention takes K2's tensor-core variant, float32 its scalar one),
 the fused GroupNorm+FiLM+SiLU op at the UNet's norm-site shapes
-(``fused_groupnorm_silu``), the anomaly-scoring eval chain (phases
+(``fused_groupnorm_silu``; and in the UNet fold's numerics through
+``GroupNorm32`` at each eval cell's largest norm site against its eager
+chain), the anomaly-scoring eval chain (phases
 ``eval_correctness``: the scoring core card against CPU and scipy on one
 reconstruction; ``eval_full_size``: the orchestrated val/test/healthy
 protocol through ``eval/reconstruct.py::VolumeReconstructor.
@@ -58,7 +60,10 @@ step and an eval group, both through K2's float32 kernel;
 S = 2304): a train step and an eval group through K2's long-sequence
 tensor-core kernel, which is also held against the plain version on the
 middle block's own qkv. Each path is driven with the
-kernels' launch counters set to 0 just before it and read just after. Every
+kernels' launch counters set to 0 just before it and read just after; so
+is ``GroupNorm32.fold_calls``, and ``norm_route`` requires K3 at every fold
+site of an eval path (a fit's validations among them) and no K3 launch in a
+train step (a fit's train steps among them). Every
 phase prints one JSON line (all of them also go to
 ``chiprun_out/chip_smoke.jsonl``); any failed check raises, so the process
 exits non-zero. The last line is the device line ``{"ok": true, "device":
@@ -468,7 +473,8 @@ def k3_bf16_rounding():
     round(round(x*a) + b), in two checks. On the card, the bf16x2 form that
     both variants use against the generic per-element form on 2^20 slices of
     8 (x over 2^-8..2^8, |y| past SiLU's fast-divide limit included): equal
-    bit for bit, with and without SiLU. ``fused`` counts the elements where
+    bit for bit, with and without SiLU, in each numerics (the TPU kernel's,
+    the fold's, the fold's with the FiLM after the norm). ``fused`` counts the elements where
     x*a + b rounded once (from float64) differs from round(round(x*a) + b),
     so the check can see a contraction. In the built library's SASS: no HFMA2.BF16_V2 with three
     register sources, the form of a multiply and an add fused into one."""
@@ -490,17 +496,21 @@ def k3_bf16_rounding():
     x = wide(-8, 8)
     a = wide(-4, 4).float()
     b = wide(-4, 7).float()
+    film = (wide(-6, -1).float(), wide(-4, 4).float())
     out = {"slices": m}
-    for silu in (False, True):
-        y_p, y_g, sq_p, sq_g = F3.bf16_slice_check(x, a, b, silu)
-        torch.cuda.synchronize()
-        key = "silu" if silu else "affine"
-        out[key] = {"y_differ": int((y_p.view(torch.int16) != y_g.view(torch.int16)).sum()),
-                    "square_differ": int((sq_p.view(torch.int32)
-                                          != sq_g.view(torch.int32)).sum())}
-        require(out[key]["y_differ"] == 0 and out[key]["square_differ"] == 0,
-                f"K3 bf16x2 arithmetic differs from the generic rounding ({key}): "
-                f"{out[key]}")
+    for numerics, prefix in ((F3.TPU, ""), (F3.FOLD, "fold_"),
+                             (F3.FOLD_FILM_AFTER, "fold_film_after_")):
+        for silu in (False, True):
+            y_p, y_g, sq_p, sq_g = F3.bf16_slice_check(
+                x, a, b, silu, numerics, film if numerics == F3.FOLD_FILM_AFTER else None)
+            torch.cuda.synchronize()
+            key = prefix + ("silu" if silu else "affine")
+            out[key] = {"y_differ": int((y_p.view(torch.int16) != y_g.view(torch.int16)).sum()),
+                        "square_differ": int((sq_p.view(torch.int32)
+                                              != sq_g.view(torch.int32)).sum())}
+            require(out[key]["y_differ"] == 0 and out[key]["square_differ"] == 0,
+                    f"K3 bf16x2 arithmetic differs from the generic rounding ({key}): "
+                    f"{out[key]}")
     once = (x.double() * a.double() + b.double()).float().to(torch.bfloat16)
     twice = ((x.float() * a).to(torch.bfloat16).float() + b).to(torch.bfloat16)
     out["fused"] = int((once.view(torch.int16) != twice.view(torch.int16)).sum())
@@ -524,9 +534,11 @@ def phase_k3():
     [288, C] f32, SiLU on), then at cases of each variant's own (the cluster
     kernel with a ragged last rank at k = 16 and k = 4, and float32 with
     FiLM [1, C]; the one-read kernel at a float32 flagship sample, a ragged
-    float32 sample with FiLM [B, C] and a 9.4 MB bf16 sample; the two-pass
-    kernel at C = 36 bf16 without FiLM or SiLU and at a 75 MB float32
-    sample, beyond the one-read kernel's resident grid). The launch counters
+    float32 sample with FiLM [B, C] and a 9.4 MB float32 sample; the two-pass
+    kernel at C = 36 bf16 without FiLM or SiLU, at a 9.4 MB bf16 sample and at
+    a 75 MB float32 sample, beyond the one-read kernel's resident grid).
+    Then K3 in the UNet fold's numerics at each eval cell's largest norm site
+    (``k3_fold_record``). The launch counters
     are set to 0 just before each call and read just after: each call must
     launch the variant ``kernel_for`` picks, once, and give the same output
     as that variant called alone (a second launch: bit-equal), and as it
@@ -571,7 +583,8 @@ def phase_k3():
         ((4, 576, 128), torch.float32, 1, True, 32, "cluster"),
         (f32_sample, torch.float32, 1, True, 32, "coop"),
         ((3, 9215, 128), torch.float32, 3, True, 32, "coop"),      # ragged last tile
-        ((2, 36864, 128), torch.bfloat16, 2, True, 32, "coop"),    # beyond 16 CTAs
+        ((2, 18432, 128), torch.float32, 2, True, 32, "coop"),     # beyond 16 CTAs
+        ((2, 36864, 128), torch.bfloat16, 2, True, 32, "two_pass"),  # bf16 beyond 16 CTAs
         ((3, 100, 36), torch.bfloat16, 0, False, 12, "two_pass"),   # C*2 % 16 != 0
         ((1, 147456, 128), torch.float32, 1, True, 32, "two_pass"),  # beyond the grid
     ]
@@ -639,7 +652,7 @@ def phase_k3():
         device = {}
         if in_turns and not site:
             marks = {"coop": (("gn_coop_kernel",), 1),
-                     "two_pass": (("gn_stats_kernel", "gn_apply_kernel"), 2)}
+                     "two_pass": (("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel"), 3)}
             for v in order:
                 device.setdefault(v, []).append(profiled_kernel_ms(
                     fns[v], marks[v][0], reps=100, per_call=marks[v][1]))
@@ -662,9 +675,20 @@ def phase_k3():
                 f"(allclose ratio {rec['allclose_ratio']})")
     ptxas = [line.strip() for line in _build.build_log.get("fused_norm", "").splitlines()
              if "registers" in line or "Compiling entry" in line or "spill" in line]
+    # the fold numerics at each eval cell's largest norm site and a cluster
+    # site of each, a volume's rows (bf16), and at the DDPM f32 eval group's
+    # largest cluster and one-read sites (float32), each mode
+    every = ("after", "none", "fold")
+    fold = [k3_fold_record(shape, g) for shape in ((168, 9216, 384), (312, 36864, 384))]
+    fold += [k3_fold_record(shape, g, modes=every)
+             for shape in ((168, 9216, 128), (312, 2304, 256))]
+    fold += [k3_fold_record(shape, g, torch.float32, every)
+             for shape in ((56, 2304, 256), (56, 9216, 384))]
+    require([r["variant"] for r in fold[2:]] == ["cluster", "cluster", "cluster", "coop"],
+            f"K3 fold records: {[(r['shape'], r['variant']) for r in fold]}")
     emit({"phase": "k3", "nvidia_smi": nvidia_smi(), "bf16_rounding": rounding,
           "path_launches": path, "dispatched": dispatched, "ptxas": ptxas,
-          "results": recs})
+          "results": recs, "fold": fold})
 
     def rec_of(variant, shape, dtype):
         return next(r for r in recs if r["name"] == names[variant]
@@ -679,14 +703,163 @@ def phase_k3():
         key: rec_of("two_pass", sites[0], "bfloat16")[key] for key in (
             "shape", "dtype", "max_abs_err", "allclose_ratio", "ms", "ms_readings",
             "plain_ms", "bound_ms", "library_ms")}
-    out["coop"]["at_bf16_sample"] = {
-        key: rec_of("coop", (2, 36864, 128), "bfloat16")[key] for key in (
+    out["coop"]["at_9mb_sample"] = {
+        key: rec_of("coop", (2, 18432, 128), "float32")[key] for key in (
             "shape", "dtype", "max_abs_err", "allclose_ratio", "ms", "plain_ms",
             "bound_ms", "library_ms")}
     for v, rec in out.items():
         rec["launches"] = path[names[v]]
         rec["launches_counted_over"] = dispatched[v]
     return out
+
+
+def _path_kind(path: str) -> str:
+    """"train" for a path of train steps (autograd records every UNet call),
+    "eval" for a path of forwards without grad (reconstructions, samplers, a
+    fit's validations)."""
+    if any(m in path for m in ("train_step", "fwd_bwd", "_steps_rank")):
+        return "train"
+    return "eval"
+
+
+def norm_route(paths):
+    """The UNet norm chain's route on each path: the share of the fold's
+    calls on the card that took K3 (``GroupNorm32.fold_calls``; None on a
+    path with no fold site). Requires K3 at every fold site of an eval path,
+    one K3 call a site, and no K3 launch in a train step. A fit epoch comes
+    in two paths, its validations and its train steps."""
+    share = {}
+    for path, counts in paths.items():
+        k3, eager = counts["norm_fold_k3"], counts["norm_fold_eager"]
+        share[path] = k3 / (k3 + eager) if k3 + eager else None
+        kind = _path_kind(path)
+        if kind == "eval":
+            require(eager == 0 and counts["fused_groupnorm_silu"] == k3,
+                    f"{path}: a fold site off K3 ({k3} on K3, {eager} eager, "
+                    f"{counts['fused_groupnorm_silu']} K3 launches)")
+        elif kind == "train":
+            require(k3 == 0 and counts["fused_groupnorm_silu"] == 0,
+                    f"{path}: K3 in a train step ({k3} fold calls, "
+                    f"{counts['fused_groupnorm_silu']} launches)")
+    emit({"phase": "norm_route", "fold_k3_share": share,
+          "kind": {path: _path_kind(path) for path in paths}})
+    return share
+
+
+# the fold's float32 route against its eager chain: the largest relative L2
+# gap of a chunk of samples (the statistics summed in another order) it may
+# read; the TPU numerics' eps (1e-6 for 1e-5) reads several times more on
+# ``k3_fold_record``'s float32 inputs, whose group variances of ~1e-3 make
+# the eps count
+FOLD_F32_REL_GAP = 2e-5
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def k3_fold_record(shape, g, dtype=None, modes=("after",)):
+    """K3 in the fold numerics through ``GroupNorm32`` at a UNet norm site
+    [B, N, C] (N a square, bf16 unless ``dtype``) under no_grad, with SiLU,
+    against the module's eager chain on the same input, in each FiLM mode of
+    ``modes``: "none", "fold" (``film_fold``, composed into the
+    coefficients) or "after" (after the norm, as a cell's out-norms call
+    it). For each mode: the route's launches (one call, on K3), the share of
+    elements bit-equal, the largest gap and the largest relative L2 gap of a
+    chunk of samples; bf16 must be >= 99.9% bit-equal, float32 within
+    FOLD_F32_REL_GAP, and in float32 the TPU numerics' kernel
+    (``fused_groupnorm_silu``, eps 1e-6) on the same input is read beside
+    it as the control that the limit must fail. In the first mode: ms in
+    turns (K3, eager, eager, K3; CUDA events), K3's device ms from the
+    profiler, and its bound (one read and one write of x)."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32
+    from conditioned_diffusion_models_uad_torch.ops import fused_norm as F3
+    from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_
+
+    dtype = dtype or torch.bfloat16
+    b, n, c = shape
+    side = math.isqrt(n)
+    # float32 at a 16th of the scale: the same cancellation, a variance at
+    # which eps tells 1e-5 from 1e-6
+    scale = 1.0 if dtype == torch.bfloat16 else 1 / 16
+    mu = torch.randn((b, c, 1, 1), generator=g, device="cuda")
+    sd = 0.5 + torch.rand((b, c, 1, 1), generator=g, device="cuda")
+    x = ((torch.randn((b, c, side, side), generator=g, device="cuda") * sd + mu)
+         * scale).to(dtype).contiguous(memory_format=torch.channels_last)
+    norm = randomize_(GroupNorm32(c, f32_apply=False), 3).cuda()
+    fs = tuple((0.3 * torch.randn((b, c, 1, 1), generator=g, device="cuda")).to(dtype)
+               for _ in range(2))
+    plan = F3._card_plan(x.permute(0, 2, 3, 1).reshape(b, n, c), 32)
+    name = F3.VARIANTS[plan.variant].__name__
+    chunk = 24
+
+    def call(mode, fn, i=0, j=b):
+        film = () if mode == "none" else tuple(f[i:j] for f in fs)
+        return fn(x[i:j], *film, film_fold=mode == "fold", silu=True)
+
+    def control(mode, i, j):
+        film = None if mode == "none" else tuple(f[i:j].reshape(j - i, c).float() for f in fs)
+        y = F3.fused_groupnorm_silu(x[i:j].permute(0, 2, 3, 1), norm.weight, norm.bias, film)
+        return y.permute(0, 3, 1, 2)
+
+    agreement = {}
+    with torch.no_grad():
+        for mode in modes:
+            counters = _zero_launches()
+            call(mode, norm)
+            took = _read_launches(counters)
+            require(took["norm_fold_k3"] == 1 and took["fused_groupnorm_silu"] == 1
+                    and took[name] == 1,
+                    f"K3 fold {list(shape)} {dtype} {mode}: the call took {took}")
+            # compared a few samples at a time (each sample's output is its
+            # own), so that both outputs and their float32 gap fit beside x
+            same, err, rel, rel_control = 0, 0.0, 0.0, None
+            for i in range(0, b, chunk):
+                j = min(b, i + chunk)
+                got, want = call(mode, norm, i, j), call(mode, norm.eager, i, j)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same += int((got.view(bits) == want.view(bits)).sum())
+                err = max(err, (got.float() - want.float()).abs().max().item())
+                rel = max(rel, _rel_l2(got, want))
+                if dtype == torch.float32:
+                    rel_control = max(rel_control or 0.0, _rel_l2(control(mode, i, j), want))
+            del got, want
+            rec = {"bit_equal_share": same / x.numel(), "max_abs_err": err, "max_rel_l2": rel}
+            if dtype == torch.float32:
+                rec.update(limit_rel_l2=FOLD_F32_REL_GAP, tpu_numerics_rel_l2=rel_control)
+                require(rel <= FOLD_F32_REL_GAP < rel_control,
+                        f"K3 fold {list(shape)} float32 {mode}: relative gap {rel:.3g}, the "
+                        f"TPU numerics' {rel_control:.3g}, limit {FOLD_F32_REL_GAP}")
+            else:
+                require(rec["bit_equal_share"] >= 0.999,
+                        f"K3 fold {list(shape)} {mode}: {rec['bit_equal_share']:.5f} of the "
+                        "elements bit-equal")
+            agreement[mode] = rec
+        fns = {"k3": lambda: call(modes[0], norm), "eager": lambda: call(modes[0], norm.eager)}
+        readings = {"k3": [], "eager": []}
+        for v in ("k3", "eager", "eager", "k3"):
+            readings[v].append(cuda_ms(fns[v], reps=10 if v == "k3" else 2, warmup=1))
+        marks = {"cluster": ("gn_cluster_kernel",), "coop": ("gn_coop_kernel",),
+                 "two_pass": ("gn_stats_kernel", "gn_fold_kernel",
+                              "gn_apply_kernel")}[plan.variant]
+        device_ms = profiled_kernel_ms(fns["k3"], marks, reps=10, per_call=len(marks))
+    nbytes = 2 * x.numel() * x.element_size()
+    rec = {"name": name, "route": "cuda",
+           "numerics": "fold (GroupNorm32 under no_grad), SiLU; FiLM by mode; timed: "
+                       + modes[0],
+           "source": f"{PKG}/csrc/fused_norm.cu", "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""), "variant": plan.variant,
+           "plan": plan._asdict(), "agreement": agreement,
+           "ms": sum(readings["k3"]) / 2, "ms_readings": readings["k3"],
+           "device_ms": device_ms, "eager_ms": sum(readings["eager"]) / 2,
+           "eager_ms_readings": readings["eager"],
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    rec["share_of_bound"] = rec["bound_ms"] / device_ms
+    del x, norm, fs
+    torch.cuda.empty_cache()
+    return rec
 
 
 def kernel_kind(name: str) -> str:
@@ -697,7 +870,8 @@ def kernel_kind(name: str) -> str:
                                           "attention_mma_long_fwd_kernel")),
                         ("K1 noise", ("fractal_noise_kernel",)),
                         ("K3 norm", ("gn_cluster_kernel", "gn_coop_kernel",
-                                     "gn_stats_kernel", "gn_apply_kernel")),
+                                     "gn_stats_kernel", "gn_fold_kernel",
+                                     "gn_apply_kernel")),
                         ("upsample/pool", ("upsample", "pool")),
                         ("sort/select", ("sort", "radix", "median", "kthvalue")),
                         ("scan", ("scan", "cumsum", "cummax", "cummin")),
@@ -742,14 +916,23 @@ def _launch_counters():
 
 
 def _zero_launches():
+    """Sets every wrapper's launch counter and ``GroupNorm32.fold_calls`` to 0."""
+    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32
+
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    GroupNorm32.fold_calls.update(k3=0, eager=0)
     return counters
 
 
 def _read_launches(counters):
-    return {name: fn.launches for name, fn in counters.items()}
+    """Each wrapper's launches, and the UNet norm sites' fold calls on the
+    card by route (``norm_fold_k3``, ``norm_fold_eager``)."""
+    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32
+
+    return {**{name: fn.launches for name, fn in counters.items()},
+            **{f"norm_fold_{route}": n for route, n in GroupNorm32.fold_calls.items()}}
 
 
 def _flagship_task(device, **kw):
@@ -2451,8 +2634,6 @@ def phase_variants_full_size():
             and ff["eval_group"]["launches"]["attention_fwd_scalar"] == 0,
             f"film_fold eval group: K2 launches {ff['eval_group']}")
     require(per_call["attention_fwd_mma"] == 1, f"UNetConfig-only flags: K2 {per_call}")
-    for rec in launches.values():
-        require(rec["fused_groupnorm_silu"] == 0, "K3 launched on a UNet path")
     return launches
 
 
@@ -2811,9 +2992,10 @@ def phase_run_from_files(work: Path, data_wait_s: float):
     for k in binding.reads:
         binding.reads[k] = 0
 
-    launches = {"fit": {}, "stages": {}}
+    launches = {"fit": {}, "stages": {}, "val": {}}
     fit_start = {}
     orig_fit, orig_stage = loop.Trainer.fit, orchestrate.run_stage
+    orig_validate = loop.Trainer.validate
 
     def fit(self, *a, **kw):
         fit_start.update({k: v.detach().cpu().clone() for k, v in self.task.state_dict().items()
@@ -2824,6 +3006,15 @@ def phase_run_from_files(work: Path, data_wait_s: float):
         finally:
             torch.cuda.synchronize()
             launches["fit"] = _read_launches(counters)
+
+    def validate(self, *a, **kw):
+        # a fit's validations, summed apart from its count as a whole
+        before = _read_launches(_launch_counters())
+        try:
+            return orig_validate(self, *a, **kw)
+        finally:
+            for k, v in _read_launches(_launch_counters()).items():
+                launches["val"][k] = launches["val"].get(k, 0) + v - before[k]
 
     def run_stage(session, *a, **kw):
         counters = _zero_launches()
@@ -2848,7 +3039,7 @@ def phase_run_from_files(work: Path, data_wait_s: float):
                             "model.reco_mode=ddim",
                             f"model.sampling_steps={DDIM_RELOAD_STEPS}"]}
     wall, printed = {}, io.StringIO()
-    loop.Trainer.fit, orchestrate.run_stage = fit, run_stage
+    loop.Trainer.fit, orchestrate.run_stage, loop.Trainer.validate = fit, run_stage, validate
     try:
         for name, args in runs.items():
             launches["stages"] = {}
@@ -2859,8 +3050,10 @@ def phase_run_from_files(work: Path, data_wait_s: float):
             wall[name] = time.perf_counter() - t0
             launches[name] = launches["stages"]
             launches[f"{name}_fit"], launches["fit"] = launches["fit"], {}
+            launches[f"{name}_val"], launches["val"] = launches["val"], {}
     finally:
         loop.Trainer.fit, orchestrate.run_stage = orig_fit, orig_stage
+        loop.Trainer.validate = orig_validate
     reads = dict(binding.reads)
     require(reads["native"] > 0 and reads["python"] == 0,
             f"run from files: NIfTI reads {reads} (every read must be native)")
@@ -3066,6 +3259,16 @@ def phase_run_from_files(work: Path, data_wait_s: float):
     def total(stages):
         return {k: sum(v[k] for v in stages.values()) for k in fit_l}
 
+    # a UNet fit's epoch in halves for ``norm_route``: its validations (no
+    # grad: every fold call on K3) and its train steps (every call eager)
+    halves = {}
+    for name, path, n_epochs in (("fit_eval", "fit_epoch", epochs),
+                                 ("pddpm", "pddpm_fit_epoch", pd_epochs)):
+        fit_n, val_n = launches[f"{name}_fit"], launches[f"{name}_val"]
+        require(val_n["norm_fold_k3"] > 0, f"{path}: no validation norm call on K3: {val_n}")
+        halves[f"{path}.validation"] = {k: v / n_epochs for k, v in val_n.items()}
+        halves[f"{path}.train_steps"] = {k: (v - val_n[k]) / n_epochs for k, v in fit_n.items()}
+
     return {"fit_epoch": {k: v / epochs for k, v in fit_l.items()},
             "pddpm_fit_epoch": {k: v / pd_epochs for k, v in launches["pddpm_fit"].items()},
             "pddpm_eval_from_files": total(launches["pddpm"]),
@@ -3074,7 +3277,8 @@ def phase_run_from_files(work: Path, data_wait_s: float):
             "added_cli_s": wall["pddpm"] + wall["ddim_reload"],
             "spark_fit_epoch": {k: v / epochs for k, v in launches["spark_fit"].items()},
             "spark_eval_from_files": {k: sum(v[k] for v in launches["spark"].values())
-                                      for k in fit_l}}
+                                      for k in fit_l},
+            "fit_halves": halves}
 
 
 # --------------------------------------------------------------------------- #
@@ -3679,45 +3883,46 @@ def run_phases(gen, work: Path) -> int:
     k2_long["launches"] = fullres_eval_launches["attention_fwd_mma_long"]
     k2_long["launches_counted_over"] = "fullres_eval_group"
     k3_cluster, k3_coop, k3_two_pass = k3["cluster"], k3["coop"], k3["two_pass"]
+    paths = {"reconstruct_call": launches,
+             "train_step": train_launches,
+             "eval_protocol": eval_run["launches"],
+             "eval_group": {k: v / eval_run["groups"] for k, v in eval_run["launches"].items()},
+             "fit_epoch": files["fit_epoch"],
+             "eval_from_files": files["eval_from_files"],
+             "spark_train_step": spark_launches,
+             "spark_fit_epoch": files["spark_fit_epoch"],
+             "spark_eval_from_files": files["spark_eval_from_files"],
+             "ddim_reconstruct_call": iter_launches["ddim"],
+             "ancestral_reconstruct_call": iter_launches["ancestral"],
+             "pddpm_eval_group": pd_eval_launches,
+             "pddpm_train_step": pd_train_launches,
+             "pddpm_fit_epoch": files["pddpm_fit_epoch"],
+             "pddpm_eval_from_files": files["pddpm_eval_from_files"],
+             "ddim_eval_from_files": files["ddim_eval_from_files"],
+             "ddpm_f32_train_step": ddpm_train_launches,
+             "ddpm_f32_eval_group": ddpm_eval_launches,
+             "fullres_train_step": fullres_train_launches,
+             "fullres_eval_group": fullres_eval_launches,
+             **var_launches,
+             **{f"ddp_train_step_rank{r}": per for r, per in enumerate(ddp_train_launches)},
+             **{f"ddp_eval_group_rank{r}": per for r, per in enumerate(ddp_eval_launches)},
+             **{f"ddp_fp32_{kind}_steps_rank{r}": per
+                for kind, ranks in ddp_correct_launches.items()
+                for r, per in enumerate(ranks)}}
     for rec, name in ((k1, "fractal_noise_2d"), (k2_mma, "attention_fwd_mma"),
                       (k2_long, "attention_fwd_mma_long"),
                       (k2_scalar, "attention_fwd_scalar"),
                       (k3_cluster, "fused_groupnorm_silu_cluster"),
                       (k3_coop, "fused_groupnorm_silu_coop"),
                       (k3_two_pass, "fused_groupnorm_silu_two_pass")):
-        rec["launches_by_path"] = {"reconstruct_call": launches[name],
-                                   "train_step": train_launches[name],
-                                   "eval_protocol": eval_run["launches"][name],
-                                   "eval_group": eval_run["launches"][name] / eval_run["groups"],
-                                   "fit_epoch": files["fit_epoch"][name],
-                                   "eval_from_files": files["eval_from_files"][name],
-                                   "spark_train_step": spark_launches[name],
-                                   "spark_fit_epoch": files["spark_fit_epoch"][name],
-                                   "spark_eval_from_files": files["spark_eval_from_files"][name],
-                                   "ddim_reconstruct_call": iter_launches["ddim"][name],
-                                   "ancestral_reconstruct_call": iter_launches["ancestral"][name],
-                                   "pddpm_eval_group": pd_eval_launches[name],
-                                   "pddpm_train_step": pd_train_launches[name],
-                                   "pddpm_fit_epoch": files["pddpm_fit_epoch"][name],
-                                   "pddpm_eval_from_files": files["pddpm_eval_from_files"][name],
-                                   "ddim_eval_from_files": files["ddim_eval_from_files"][name],
-                                   "ddpm_f32_train_step": ddpm_train_launches[name],
-                                   "ddpm_f32_eval_group": ddpm_eval_launches[name],
-                                   "fullres_train_step": fullres_train_launches[name],
-                                   "fullres_eval_group": fullres_eval_launches[name],
-                                   **{path: counts[name] for path, counts in
-                                      var_launches.items()},
-                                   **{f"ddp_train_step_rank{r}": per[name]
-                                      for r, per in enumerate(ddp_train_launches)},
-                                   **{f"ddp_eval_group_rank{r}": per[name]
-                                      for r, per in enumerate(ddp_eval_launches)},
-                                   **{f"ddp_fp32_{kind}_steps_rank{r}": per[name]
-                                      for kind, ranks in ddp_correct_launches.items()
-                                      for r, per in enumerate(ranks)}}
+        rec["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
     for rec in (k3_cluster, k3_coop, k3_two_pass):
         rec["launches_by_path"]["k3_phase_calls"] = rec["launches"]
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
         "attention_fwd_scalar"]
+    # a fit epoch in its two halves, its validations and its train steps
+    norm_route({**{p: n for p, n in paths.items() if not p.endswith("fit_epoch")},
+                **files["fit_halves"], "slice_correctness_call": slice_launches})
     emit({"phase": "timing", "iterative_and_patched_phases_s": new_phases_s,
           "variants_and_prepare_phases_s": variants_s,
           "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"],

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, qk_scale
+from ..ops.fused_norm import fused_groupnorm_fold
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
@@ -63,15 +64,43 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), b)
 
 
+def takes_k3(x, params, f32_apply: bool, film=()) -> bool:
+    """Whether a ``GroupNorm32`` call takes kernel K3: x a CUDA tensor of
+    bfloat16 or float32 in channels_last memory (so that ``x.permute(0, 2,
+    3, 1)`` is K3's contiguous [B, N, C]), the module on the fold (not
+    ``f32_apply``), the FiLM tensors of x's dtype, and nothing for autograd
+    to record: grad mode off, or neither x, the parameters nor the FiLM
+    require grad. Every other call takes the eager chain."""
+    if f32_apply or x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        return False
+    if any(f.dtype != x.dtype for f in film):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, *params, *film)))
+
+
 class GroupNorm32(nn.Module):
-    """GroupNorm(32) with float32 statistics, var = max(0, E[x²] − E[x]²).
+    """GroupNorm(32) with float32 statistics, var = max(0, E[x²] − E[x]²),
+    and a norm site's FiLM and SiLU.
 
     ``f32_apply=True`` is flax ``nn.GroupNorm`` (eps 1e-6): normalize and
     affine in float32, then cast to the input dtype. ``f32_apply=False`` is
     the fold (eps 1e-5): per-(sample, channel) ``a``, ``b`` computed in
-    float32, cast to the compute dtype, and one ``x*a+b``. On the fold,
-    ``film_scale``/``film_shift`` [B, C, 1, 1] compose a ResBlock's FiLM
-    into the coefficients in float32: ``a·(1+s)``, ``b·(1+s)+t``."""
+    float32, cast to the compute dtype, and one ``x*a+b``.
+
+    ``forward(x, scale, shift, film_fold=, silu=)`` is the site's whole
+    chain: a ResBlock's FiLM scale and shift [B, C, 1, 1], composed into the
+    fold's coefficients in float32 with ``film_fold`` (``a·(1+s)``,
+    ``b·(1+s)+t``), else applied after the norm in x's dtype,
+    ``y*(1+scale)+shift``; then SiLU when ``silu``. On the card the fold
+    takes K3 in one call (``ops/fused_norm.py::fused_groupnorm_fold``, the
+    same roundings) wherever ``takes_k3`` holds, and ``eager`` otherwise.
+    ``GroupNorm32.fold_calls`` counts the fold's calls on the card by route
+    ("k3", "eager")."""
+
+    fold_calls = {"k3": 0, "eager": 0}
 
     def __init__(self, channels: int, f32_apply: bool = True, num_groups: int = 32):
         super().__init__()
@@ -80,7 +109,32 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, film_scale=None, film_shift=None):
+    def forward(self, x, scale=None, shift=None, *, film_fold=False, silu=False):
+        if x.device.type == "cuda" and not self.f32_apply:
+            film = () if scale is None else (scale, shift)
+            k3 = takes_k3(x, (self.weight, self.bias), self.f32_apply, film)
+            GroupNorm32.fold_calls["k3" if k3 else "eager"] += 1
+            if k3:
+                c = x.shape[1]
+                film_bc = None if scale is None else (scale.reshape(-1, c), shift.reshape(-1, c))
+                y = fused_groupnorm_fold(x.permute(0, 2, 3, 1), self.weight, self.bias, film_bc,
+                                         film_after=scale is not None and not film_fold,
+                                         groups=self.num_groups, eps=1e-5, apply_silu=silu)
+                return y.permute(0, 3, 1, 2)
+        return self.eager(x, scale, shift, film_fold=film_fold, silu=silu)
+
+    def eager(self, x, scale=None, shift=None, *, film_fold=False, silu=False):
+        """The chain in PyTorch operations (the route off the card, for
+        ``f32_apply`` and wherever autograd records)."""
+        if film_fold:
+            y = self._norm(x, scale, shift)
+        else:
+            y = self._norm(x)
+            if scale is not None:
+                y = y * (1 + scale) + shift
+        return F.silu(y) if silu else y
+
+    def _norm(self, x, film_scale=None, film_shift=None):
         b, c = x.shape[:2]
         g = self.num_groups
         xf = x.float()
@@ -187,7 +241,7 @@ class ResBlock(nn.Module):
         )
 
     def forward(self, x, emb, keep=None):
-        h = F.silu(self.in_layers[0](x))
+        h = self.in_layers[0](x, silu=True)
         if self.up:
             h = F.interpolate(h, scale_factor=2, mode="nearest")
             x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -197,14 +251,10 @@ class ResBlock(nn.Module):
         h = self.in_layers[2](h)
         emb_out = self.emb_layers[1](F.silu(emb))[:, :, None, None]
         if not self.use_scale_shift_norm:
-            h = self.out_layers[0](h + emb_out)
-        elif self.film_fold:
-            scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h, scale, shift)
+            h = self.out_layers[0](h + emb_out, silu=True)
         else:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-        h = F.silu(h)
+            h = self.out_layers[0](h, scale, shift, film_fold=self.film_fold, silu=True)
         if keep is not None:
             h = apply_dropout(h, keep, self.rate)
         h = self.out_layers[3](h)
@@ -575,7 +625,7 @@ class UNetModel(nn.Module):
         h = self._run(self.middle_block, h, emb, context, masks)
         for block in self.output_blocks:
             h = self._run(block, torch.cat([h, skips.pop()], dim=1), emb, context, masks)
-        h = self.out[2](F.silu(self.out[0](h)))
+        h = self.out[2](self.out[0](h, silu=True))
         return h.permute(0, 2, 3, 1).float()
 
 

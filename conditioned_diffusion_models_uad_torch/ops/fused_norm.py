@@ -14,19 +14,28 @@ off the TPU. The variants:
   a time in its shared memory, so x is read once;
 - ``fused_groupnorm_silu_coop``: one cooperative launch of resident blocks,
   each holding one tile of a sample in its shared memory across a
-  per-sample barrier, so x is read once; for the samples the cluster kernel
-  does not hold whose tiles fit in the blocks the card holds at once;
-- ``fused_groupnorm_silu_two_pass``: a statistics launch and an apply launch
-  over pixel tiles (x read twice), for the rest: a sample too large for the
-  resident grid, rows not a multiple of 16 bytes, x not 16-byte aligned.
+  per-sample barrier, so x is read once; for the float32 samples the
+  cluster kernel does not hold whose tiles fit in the blocks the card holds
+  at once;
+- ``fused_groupnorm_silu_two_pass``: a statistics launch, a launch that
+  sums each sample's partials once, and an apply launch over pixel tiles (x
+  read twice), for the rest: a sample too large for the resident grid, rows
+  not a multiple of 16 bytes, x not 16-byte aligned.
 
-All three mirror the TPU kernel's own numerics, not the twin's: the square is
-taken in x's dtype, the folded per-channel ``a``, ``b`` are rounded to x's
-dtype before ``x*a + b``, and the SiLU runs in y's dtype. In float32 they
-match the plain version to ~1e-6; in bfloat16 to one or two bf16 ulps.
+Each variant runs in one of two numerics, a template parameter of the
+kernels. ``fused_groupnorm_silu`` takes the TPU kernel's own, not the twin's:
+the square is taken in x's dtype, the folded per-channel ``a``, ``b`` are
+rounded to x's dtype before ``x*a + b``, and the SiLU runs in y's dtype. In
+float32 it matches the plain version to ~1e-6; in bfloat16 to one or two bf16
+ulps. No model of either package calls it, as in the JAX package.
 
-No model of either package calls this op: the UNets keep their unfused
-GroupNorm, whose eps and rounding differ (``models/unet.py::GroupNorm32``).
+``fused_groupnorm_fold`` takes the UNet's own: ``models/unet.py::GroupNorm32``
+on the fold (``f32_apply=False``, eps 1e-5) with the ResBlock's FiLM and
+SiLU, rounded step for step as the eager chain rounds them (the square in
+float32, var clamped at 0, the FiLM composed into ``a``, ``b`` or applied
+after the norm in x's dtype, torch's SiLU); only the float32 summation
+order of the statistics differs. ``GroupNorm32`` calls it on the card
+wherever autograd records nothing (``models/unet.py::takes_k3``).
 """
 from __future__ import annotations
 
@@ -59,19 +68,22 @@ BLOCK_SMEM_RESERVED = 1024  # shared memory the card keeps per block
 
 Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
+# the kernels' numerics (csrc/fused_norm.cu::Numerics)
+TPU, FOLD, FOLD_FILM_AFTER = 0, 1, 2
+
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "fused_groupnorm_tiles": [_C, _C, _C],
     "fused_groupnorm_silu_two_pass": [_P] * 6 + [_C, _P] + [_C] * 6
-    + [ctypes.c_float, _C, _P],
+    + [ctypes.c_float, _C, _C, _P],
     "fused_groupnorm_silu_cluster": [_P] * 5 + [_C, _P] + [_C] * 8
-    + [ctypes.c_float, _C, _P],
+    + [ctypes.c_float, _C, _C, _P],
     "fused_groupnorm_cluster_smem": [_C] * 5,
     "fused_groupnorm_cluster_occupancy": [_C] * 5,
-    "fused_groupnorm_slice_check": [_P] * 7 + [_C, _C, _P],
+    "fused_groupnorm_slice_check": [_P] * 9 + [_C] * 3 + [_P],
     "fused_groupnorm_silu_coop": [_P] * 5 + [_C] + [_P] * 3 + [_C] * 8
-    + [ctypes.c_float, _C, _P],
+    + [ctypes.c_float, _C, _C, _P],
     "fused_groupnorm_coop_smem": [_C] * 4,
     "fused_groupnorm_coop_resident": [_C] * 4,
 }
@@ -189,12 +201,16 @@ def kernel_for(dtype: torch.dtype, n: int, c: int, groups: int, *,
     groups on the card. "cluster" when C <= CLUSTER_THREADS (a thread a
     channel), C*itemsize is a multiple of 16, x is 16-byte aligned and a
     sample fits in k <= 16 CTAs (k the least power of two) of at most
-    MAX_SMEM bytes each, scratch included; else "coop" when C*itemsize is a
-    multiple of 16 of at most COOP_THREADS slices, x is aligned and a
-    sample's tiles (``coop_tiles``) are no more than the blocks the card
-    holds at once: ``resident(plan, threads)``, by default an H100's count
-    by shared memory and threads (``nominal_resident``); else "two_pass".
-    Raises on what no variant takes."""
+    MAX_SMEM bytes each, scratch included; else, for float32, "coop" when
+    C*itemsize is a multiple of 16 of at most COOP_THREADS slices, x is
+    aligned and a sample's tiles (``coop_tiles``) are no more than the
+    blocks the card holds at once: ``resident(plan, threads)``, by default
+    an H100's count by shared memory and threads (``nominal_resident``);
+    else "two_pass". In bfloat16 the two-pass kernels beat the one-read
+    kernel at every UNet site beyond the cluster (1.4-2.7x at a volume's
+    rows), whose rounds hold one or two samples across a barrier; in
+    float32 the two are even at 32 samples and the one-read kernel leads
+    below. Raises on what no variant takes."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_groupnorm_silu takes float32 or bfloat16, got {dtype}")
     if n < 1 or c < 1 or groups < 1:
@@ -211,7 +227,8 @@ def kernel_for(dtype: torch.dtype, n: int, c: int, groups: int, *,
             if smem <= MAX_SMEM:
                 return K3Plan("cluster", k, rows, smem)
             k *= 2
-    if aligned and row_bytes % 16 == 0 and row_bytes // 16 <= COOP_THREADS:
+    if dtype == torch.float32 and aligned and row_bytes % 16 == 0 \
+            and row_bytes // 16 <= COOP_THREADS:
         rows, tiles = coop_tiles(n, row_bytes)
         smem = coop_smem(rows, c, groups, itemsize)
         if smem <= MAX_SMEM:
@@ -281,9 +298,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_cluster(x, plan, gamma, beta, film, groups, eps, apply_silu):
+def _launch_cluster(x, plan, gamma, beta, film, groups, eps, apply_silu, numerics=TPU):
     """One launch of the cluster kernel on a checked x [B, N, C] with its
-    ``plan``; counted in both wrappers' ``launches``."""
+    ``plan``, in ``numerics``; counted in both wrappers' ``launches``."""
     gamma, beta, fs, fsh, film_rows = _card_params(x, gamma, beta, film)
     b, n, c = x.shape
     out = torch.empty_like(x)
@@ -292,28 +309,29 @@ def _launch_cluster(x, plan, gamma, beta, film, groups, eps, apply_silu):
     _build.check(_fns()["fused_groupnorm_silu_cluster"](
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(fs), _ptr(fsh), film_rows,
         out.data_ptr(), b, n, c, groups, _DTYPE_CODES[x.dtype], plan.k,
-        plan.rows_per_rank, clusters, eps, int(apply_silu), stream),
+        plan.rows_per_rank, clusters, eps, int(apply_silu), numerics, stream),
         "fused_groupnorm_silu_cluster launch")
     fused_groupnorm_silu_cluster.launches += 1
     fused_groupnorm_silu.launches += 1
     return out
 
 
-def _launch_two_pass(x, plan, gamma, beta, film, groups, eps, apply_silu):
-    """One call of the two-pass kernels (statistics, then apply) on a
-    checked x [B, N, C]; counted once in both wrappers' ``launches``."""
+def _launch_two_pass(x, plan, gamma, beta, film, groups, eps, apply_silu, numerics=TPU):
+    """One call of the two-pass kernels (statistics, their fold, then apply)
+    on a checked x [B, N, C]; counted once in both wrappers' ``launches``."""
     gamma, beta, fs, fsh, film_rows = _card_params(x, gamma, beta, film)
     b, n, c = x.shape
     vec = _two_pass_vec(c, x.element_size(), x.data_ptr() % 16 == 0)
     fns = _fns()
     tiles = fns["fused_groupnorm_tiles"](n, c, vec)
-    partial = torch.empty((b, tiles, groups, 2), dtype=torch.float32, device=x.device)
+    # the tiles' partials [B, tiles, G, 2], then their sums [B, G, 2]
+    partial = torch.empty(b * (tiles + 1) * groups * 2, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fns["fused_groupnorm_silu_two_pass"](
         x.data_ptr(), partial.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(fs),
         _ptr(fsh), film_rows, out.data_ptr(), b, n, c, groups, _DTYPE_CODES[x.dtype],
-        vec, eps, int(apply_silu), stream),
+        vec, eps, int(apply_silu), numerics, stream),
         "fused_groupnorm_silu_two_pass launch")
     fused_groupnorm_silu_two_pass.launches += 1
     fused_groupnorm_silu.launches += 1
@@ -337,7 +355,7 @@ def _counters(device: torch.device, b: int) -> torch.Tensor:
     return buf
 
 
-def _launch_coop(x, plan, gamma, beta, film, groups, eps, apply_silu):
+def _launch_coop(x, plan, gamma, beta, film, groups, eps, apply_silu, numerics=TPU):
     """One cooperative launch of the one-read kernel on a checked x
     [B, N, C] with its ``plan``; counted in both wrappers' ``launches``."""
     gamma, beta, fs, fsh, film_rows = _card_params(x, gamma, beta, film)
@@ -350,7 +368,7 @@ def _launch_coop(x, plan, gamma, beta, film, groups, eps, apply_silu):
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(fs), _ptr(fsh), film_rows,
         out.data_ptr(), partial.data_ptr(), counters.data_ptr(), b, n, c, groups,
         _DTYPE_CODES[x.dtype], plan.rows_per_rank, plan.tiles, coop_grid(b, plan), eps,
-        int(apply_silu), stream),
+        int(apply_silu), numerics, stream),
         "fused_groupnorm_silu_coop launch")
     fused_groupnorm_silu_coop.launches += 1
     fused_groupnorm_silu.launches += 1
@@ -387,9 +405,9 @@ def fused_groupnorm_silu_coop(x: torch.Tensor, gamma: torch.Tensor,
                               beta: torch.Tensor, film: Film = None, *,
                               groups: int = 32, eps: float = 1e-6,
                               apply_silu: bool = True) -> torch.Tensor:
-    """K3's one-read variant: one cooperative launch of resident blocks, a
-    tile of a sample in each block's shared memory across a per-sample
-    barrier. Raises for a shape ``kernel_for`` gives to another variant. A
+    """K3's one-read variant, float32 only: one cooperative launch of
+    resident blocks, a tile of a sample in each block's shared memory across
+    a per-sample barrier. Raises for a shape ``kernel_for`` gives to another variant. A
     CPU tensor takes the plain version. Counts its launches in
     ``fused_groupnorm_silu_coop.launches`` and
     ``fused_groupnorm_silu.launches``."""
@@ -409,9 +427,10 @@ def fused_groupnorm_silu_two_pass(x: torch.Tensor, gamma: torch.Tensor,
                                   beta: torch.Tensor, film: Film = None, *,
                                   groups: int = 32, eps: float = 1e-6,
                                   apply_silu: bool = True) -> torch.Tensor:
-    """K3's two-launch variant (statistics, then apply, over pixel tiles); it
-    takes every shape ``kernel_for`` takes. A CPU tensor takes the plain
-    version. Counts its launches (one per call, of its two kernels) in
+    """K3's two-pass variant (statistics, their sums a sample, then apply,
+    over pixel tiles); it takes every shape ``kernel_for`` takes. A CPU
+    tensor takes the plain version. Counts its launches (one per call, of
+    its three kernels) in
     ``fused_groupnorm_silu_two_pass.launches`` and
     ``fused_groupnorm_silu.launches``."""
     shape = x.shape
@@ -472,24 +491,31 @@ def cluster_smem_on_card(plan: K3Plan, c: int, groups: int, dtype: torch.dtype) 
 
 
 def bf16_slice_check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                     apply_silu: bool):
+                     apply_silu: bool, numerics: int = TPU, film: Film = None):
     """The kernels' bf16x2 arithmetic against their generic per-element
-    rounding, on the card: x bf16 [M, 8] with its own bf16-valued a, b
-    (float32 [M, 8]) through both. Returns (y packed, y generic, square
-    packed, square generic); each pair must be equal bit for bit."""
+    rounding, on the card, in ``numerics``: x bf16 [M, 8] with its own
+    bf16-valued a, b (float32 [M, 8]), and for ``FOLD_FILM_AFTER`` its own
+    bf16-valued FiLM (scale, shift), through both. Returns (y packed, y
+    generic, square packed, square generic); each pair must be equal bit for
+    bit."""
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2 \
             or x.shape[1] != 8 or not x.is_contiguous():
         raise ValueError("bf16_slice_check takes a contiguous CUDA bf16 x [M, 8]")
-    a, b = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (a, b))
-    if a.shape != x.shape or b.shape != x.shape:
-        raise ValueError("a and b must have x's shape")
+    if (film is not None) != (numerics == FOLD_FILM_AFTER):
+        raise ValueError("bf16_slice_check takes a FiLM with FOLD_FILM_AFTER only")
+    coefs = [t.to(device=x.device, dtype=torch.float32).contiguous()
+             for t in (a, b, *(film or ()))]
+    if any(t.shape != x.shape for t in coefs):
+        raise ValueError("a, b and the FiLM must have x's shape")
+    fs, fsh = coefs[2:] if film is not None else (None, None)
     y_packed, y_generic = torch.empty_like(x), torch.empty_like(x)
     sq_packed, sq_generic = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
                              for _ in range(2))
     _build.check(_fns()["fused_groupnorm_slice_check"](
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), y_packed.data_ptr(),
-        y_generic.data_ptr(), sq_packed.data_ptr(), sq_generic.data_ptr(), x.shape[0],
-        int(apply_silu), torch.cuda.current_stream(x.device).cuda_stream),
+        x.data_ptr(), coefs[0].data_ptr(), coefs[1].data_ptr(), _ptr(fs), _ptr(fsh),
+        y_packed.data_ptr(), y_generic.data_ptr(), sq_packed.data_ptr(),
+        sq_generic.data_ptr(), x.shape[0], int(apply_silu), numerics,
+        torch.cuda.current_stream(x.device).cuda_stream),
         "fused_groupnorm_slice_check launch")
     return y_packed, y_generic, sq_packed, sq_generic
 
@@ -513,6 +539,30 @@ def fused_groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     plan = _card_plan(x3, groups)
     return _LAUNCH[plan.variant](x3, plan, gamma, beta, film, groups, eps,
                                  apply_silu).reshape(x.shape)
+
+
+def fused_groupnorm_fold(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         film: Film = None, *, film_after: bool = False, groups: int = 32,
+                         eps: float = 1e-5, apply_silu: bool = False) -> torch.Tensor:
+    """K3 in the UNet's fold numerics, on the card: ``GroupNorm32``'s fold
+    (``f32_apply=False``) of x [B, H, W, C] or [B, N, C] (float32 or
+    bfloat16, contiguous), then the ResBlock's FiLM, film = (scale, shift)
+    [B or 1, C] of x's dtype's values, composed into the coefficients in
+    float32 (as ``film_fold``) or, with ``film_after``, applied after the
+    norm in x's dtype, ``y*(1+scale)+shift``; then SiLU as torch computes it.
+    One call of the variant ``kernel_for`` picks (one kernel, or the
+    two-pass variant's three), counted once in its own and in
+    ``fused_groupnorm_silu.launches``. The eager chain
+    (``GroupNorm32.eager``) is its plain version; a CPU tensor raises."""
+    x3 = _as_bnc(x)
+    if x3.device.type != "cuda":
+        raise ValueError(f"fused_groupnorm_fold runs on the card, got {x3.device}")
+    if film_after and film is None:
+        raise ValueError("film_after needs a FiLM")
+    plan = _card_plan(x3, groups)
+    numerics = FOLD_FILM_AFTER if film_after else FOLD
+    return _LAUNCH[plan.variant](x3, plan, gamma, beta, film, groups, eps, apply_silu,
+                                 numerics).reshape(x.shape)
 
 
 fused_groupnorm_silu.launches = 0

@@ -156,21 +156,21 @@ K3_VARIANTS = {
     # globaltimer stamps at the phase boundaries (PHASES), read back by
     # k3_read_stamps
     "phases": [
-        ("""template <typename T, bool SILU>
+        ("""template <typename T, bool SILU, int MODE>
 __global__ void __launch_bounds__(kClusterThreads, 1)""",
-         _STAMP + """template <typename T, bool SILU>
+         _STAMP + """template <typename T, bool SILU, int MODE>
 __global__ void __launch_bounds__(kClusterThreads, 1)"""),
         ("""    float gam = 0.0f, bet = 0.0f, fsc = 0.0f, fsh = 0.0f;
 """, """    stamp(s, 0);
     float gam = 0.0f, bet = 0.0f, fsc = 0.0f, fsh = 0.0f;
 """),
-        ("""#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      red[r * C + lane * VEC + v] = s1[v];""",
-         """    stamp(s, 1);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      red[r * C + lane * VEC + v] = s1[v];"""),
+        ("""            *reinterpret_cast<const V*>(piece + (size_t)n * C + lane * VEC), s1, s2);
+    }
+#pragma unroll""",
+         """            *reinterpret_cast<const V*>(piece + (size_t)n * C + lane * VEC), s1, s2);
+    }
+    stamp(s, 1);
+#pragma unroll"""),
         ("""    // every rank's partials, read through distributed shared memory
     cluster.sync();
 """, """    stamp(s, 2);
@@ -184,9 +184,11 @@ __global__ void __launch_bounds__(kClusterThreads, 1)"""),
 """),
         ("""    Slice<T, VEC> sl;
     sl.coef(a_c + lane * VEC, b_c + lane * VEC);
+    if (MODE == kFoldFilmAfter) {
 """, """    stamp(s, 5);
     Slice<T, VEC> sl;
     sl.coef(a_c + lane * VEC, b_c + lane * VEC);
+    if (MODE == kFoldFilmAfter) {
 """),
         ("""    if (tid == 0 && pieces > 0) {
       asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");
@@ -211,9 +213,9 @@ extern "C" int fused_groupnorm_cluster_smem("""),
     # one cluster per sample (grid of B clusters), so no cluster loads the
     # next sample's pieces while it applies the current one
     "cluster_per_sample": [
-        ("""  cudaError_t e = cluster_config<T, SILU>(k, rows_per_rank, c, g, &cfg, &attr,
-                                         min(b, clusters));""",
-         """  cudaError_t e = cluster_config<T, SILU>(k, rows_per_rank, c, g, &cfg, &attr, b);"""),
+        ("""  cudaError_t e = cluster_config<T, SILU, MODE>(k, rows_per_rank, c, g, &cfg, &attr,
+                                               min(b, clusters));""",
+         """  cudaError_t e = cluster_config<T, SILU, MODE>(k, rows_per_rank, c, g, &cfg, &attr, b);"""),
     ],
     # bf16 SiLU: every division through __fdiv_rn (div.rn.f32 with its range
     # check and slow-path branch) instead of silu_div
@@ -480,7 +482,7 @@ def _k3_caller(lib):
         _build.check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                         film[0].data_ptr(), film[1].data_ptr(), film[0].shape[0],
                         out.data_ptr(), b, n, c, 32, F3._DTYPE_CODES[x.dtype], plan.k,
-                        plan.rows_per_rank, clusters, 1e-6, int(apply_silu),
+                        plan.rows_per_rank, clusters, 1e-6, int(apply_silu), F3.TPU,
                         torch.cuda.current_stream(x.device).cuda_stream),
                      "fused_groupnorm_silu_cluster variant launch")
         return out

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from conditioned_diffusion_models_uad_torch.ops.fused_norm import (
     fused_groupnorm_silu,
@@ -134,15 +135,19 @@ def test_kernel_for_takes_the_unet_sites_in_one_cluster_pass(n, c, k):
     (torch.bfloat16, 9216, 128, 32, False),  # x not 16-byte aligned
     (torch.bfloat16, 64, 4096, 32, True),   # 512 slices a row: beyond a one-read block
     (torch.bfloat16, 32 * 9216, 128, 32, True),  # a 75 MB bf16 sample
+    (torch.bfloat16, 4 * 9216, 128, 32, True),   # 9.4 MB bf16: beyond 16 CTAs
+    (torch.bfloat16, 64, 1024, 32, True),        # bf16 C > 512: no cluster kernel
 ])
 def test_kernel_for_gives_the_rest_to_the_two_pass_kernel(dtype, n, c, groups, aligned):
+    """In bfloat16 every sample beyond the cluster kernel takes the two-pass
+    kernels, which beat the one-read kernel at the UNet's sites."""
     assert F3.kernel_for(dtype, n, c, groups, aligned=aligned) == F3.K3Plan("two_pass")
 
 
 @pytest.mark.parametrize("dtype,n,c,rows,tiles,resident", [
     (torch.float32, 9216, 128, 96, 96, 396),     # a 4.7 MB float32 flagship sample
-    (torch.bfloat16, 4 * 9216, 128, 192, 192, 396),  # 9.4 MB: beyond 16 CTAs
-    (torch.bfloat16, 64, 1024, 22, 3, 264),      # C > 512: no cluster kernel
+    (torch.float32, 2 * 9216, 128, 96, 192, 396),  # 9.4 MB: beyond 16 CTAs
+    (torch.float32, 64, 1024, 11, 6, 264),       # C > 512: no cluster kernel
     (torch.float32, 9215, 128, 96, 96, 396),     # the last tile one row short
 ])
 def test_kernel_for_gives_resident_samples_to_the_one_read_kernel(dtype, n, c, rows, tiles,
@@ -319,3 +324,97 @@ def test_bf16_slice_check_takes_only_a_card_tensor():
     x = torch.zeros((4, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         F3.bf16_slice_check(x, x.float(), x.float(), True)
+
+
+# --------------------------------------------------------------------------- #
+# the fold numerics (``fused_groupnorm_fold``): GroupNorm32's own roundings
+# --------------------------------------------------------------------------- #
+from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32  # noqa: E402
+from conditioned_diffusion_models_uad_torch.utils.random_init import randomize_  # noqa: E402
+
+
+def fold_kernel_emulation(x, gamma, beta, film, *, film_after, k, groups=32, eps=1e-5,
+                          apply_silu=True, moments=None):
+    """csrc/fused_norm.cu's fold numerics (kFold, kFoldFilmAfter) in float32 on
+    the CPU, for x [B, N, C] and film = (scale, shift) [B, C] of x's dtype:
+    rank r of k holds rows [r*R, min(N, (r+1)*R)), R = ceil(N/k), and adds
+    its float32 sums of x and of x*x (the square not rounded); the k partials
+    folded in rank order; ``moments`` = (E[x], E[x^2]) [B, G] in their place
+    where given. var = max(0, E[x^2] - mean^2), inv = rsqrt(var + eps); a =
+    gamma*inv, b = beta - mean*a, the FiLM composed into them in float32
+    unless ``film_after``; a and b rounded to x's dtype; y = round(round(x*a)
+    + b); with ``film_after`` y = round(round(y*round(1 + scale)) + shift);
+    SiLU y / (1 + exp(-y)) in float32 from y's value, rounded once."""
+    dt = x.dtype
+    b, n, c = x.shape
+    cg = c // groups
+    xf = x.float()
+    if moments is None:
+        rows = -(-n // k)
+        s1 = torch.zeros(b, groups)
+        s2 = torch.zeros(b, groups)
+        for r in range(k):  # rank order
+            part = xf[:, r * rows:min(n, (r + 1) * rows)].reshape(b, -1, groups, cg)
+            s1 = s1 + part.sum(dim=(1, 3))
+            s2 = s2 + (part * part).sum(dim=(1, 3))
+        moments = (s1 / float(n * cg), s2 / float(n * cg))
+    mean, meansq = moments
+    inv = torch.rsqrt(torch.clamp_min(meansq - mean * mean, 0.0) + eps)
+    mean_c = mean.repeat_interleave(cg, dim=1)  # [B, C]
+    a = gamma.float() * inv.repeat_interleave(cg, dim=1)
+    bb = beta.float() - mean_c * a
+    if film is not None and not film_after:
+        fs = 1.0 + film[0].float()
+        a = a * fs
+        bb = bb * fs + film[1].float()
+    a, bb = _round(a, dt)[:, None, :], _round(bb, dt)[:, None, :]
+    y = _round(_round(xf * a, dt) + bb, dt)
+    if film is not None and film_after:
+        y = _round(_round(y * _round(1.0 + film[0].float(), dt)[:, None, :], dt)
+                   + film[1].float()[:, None, :], dt)
+    if apply_silu:
+        y = F.silu(y)
+    return y.to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("film", [None, "fold", "after"])
+@pytest.mark.parametrize("silu", [True, False])
+def test_fold_emulation_is_the_eager_fold_given_its_statistics(dtype, film, silu):
+    """Fed the eager chain's moments (per-channel means over H*W, then over
+    the group's channels), the fold emulation equals ``GroupNorm32.eager``
+    bit for bit: every rounding after the statistics is the chain's. With
+    its own rank-ordered statistics it differs only by their float32
+    summation order."""
+    tdt = DTYPES[dtype][0]
+    gen = torch.Generator().manual_seed(11)
+    b, c, h = 3, 128, 16  # 3 * 128 * 256 elements: the SiLU's vector loop has no tail
+    norm = randomize_(GroupNorm32(c, f32_apply=False), 4)
+    x = (torch.randn((b, c, h, h), generator=gen) * 1.7 + 0.4).to(tdt).to(
+        memory_format=torch.channels_last)
+    scale, shift = ((0.3 * torch.randn((b, c, 1, 1), generator=gen)).to(tdt) for _ in range(2))
+    kw = dict(film_fold=film == "fold", silu=silu)
+    with torch.no_grad():
+        want = (norm.eager(x, **kw) if film is None
+                else norm.eager(x, scale, shift, **kw))
+        xf = x.float()
+        g = norm.num_groups
+        moments = tuple(v.mean(dim=(2, 3)).reshape(b, g, c // g).mean(dim=2)
+                        for v in (xf, xf * xf))
+        x3 = x.permute(0, 2, 3, 1).reshape(b, h * h, c)
+        f = None if film is None else (scale.reshape(b, c), shift.reshape(b, c))
+        args = (x3, norm.weight, norm.bias, f)
+        emul = dict(film_after=film == "after", apply_silu=silu)
+        got = fold_kernel_emulation(*args, k=4, moments=moments, **emul)
+        own = fold_kernel_emulation(*args, k=4, **emul)
+    want3 = want.permute(0, 2, 3, 1).reshape(b, h * h, c)
+    assert got.dtype == tdt and torch.equal(got, want3)
+    np.testing.assert_allclose(own.float().numpy(), want3.float().numpy(), **TOL_K3[dtype])
+
+
+def test_fold_wrapper_runs_on_the_card_only():
+    x, gamma, beta, f = _torch_args(*_inputs("B", seed=12), torch.bfloat16)
+    before = fused_groupnorm_silu.launches
+    with pytest.raises(ValueError):
+        F3.fused_groupnorm_fold(x, gamma, beta, f, film_after=True)
+    assert fused_groupnorm_silu.launches == before
