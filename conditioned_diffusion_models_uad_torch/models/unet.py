@@ -22,6 +22,7 @@ of flax's dropout sites), so a recomputed forward applies the same masks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence
@@ -34,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, qk_scale
 from ..ops.fused_norm import fused_groupnorm_fold
+from ..utils.profiling import span
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
@@ -479,7 +481,10 @@ class UNetModel(nn.Module):
     int, cond [B, cond_dim] (or None when unconditional) ->
     [B,H,W,out_channels] f32. ``dropout``: one bool keep mask a ResBlock
     ([B, C, H, W], in ``dropout_shapes`` order), applied at each block's
-    dropout site; None runs without dropout."""
+    dropout site; None runs without dropout. Each block that ends at the
+    input's resolution (the input convolution, the first level's input
+    blocks, the output blocks that end there) and the output head is the
+    span ``unet.full_res``."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -515,6 +520,8 @@ class UNetModel(nn.Module):
         )
         skip_chs = [mc]
         ch, ds = mc, 1
+        # whether each input / output block ends at the input's resolution
+        self._full_res_in, self._full_res_out = [True], []
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
                 layers = [res(ch, mult * mc)]
@@ -522,11 +529,13 @@ class UNetModel(nn.Module):
                 if ds in cfg.attention_resolutions:
                     layers.append(attn(ch))
                 self.input_blocks.append(nn.ModuleList(layers))
+                self._full_res_in.append(ds == 1)
                 skip_chs.append(ch)
             if level != len(cfg.channel_mult) - 1:
                 down = (res(ch, ch, down=True) if cfg.resblock_updown
                         else Downsample(ch, cfg.conv_resample))
                 self.input_blocks.append(nn.ModuleList([down]))
+                self._full_res_in.append(False)
                 skip_chs.append(ch)
                 ds *= 2
 
@@ -544,6 +553,7 @@ class UNetModel(nn.Module):
                                   else Upsample(ch, cfg.conv_resample))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
+                self._full_res_out.append(ds == 1)
 
         self.out = nn.Sequential(GroupNorm32(ch, cfg.norm_f32), nn.SiLU(),
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))
@@ -619,14 +629,26 @@ class UNetModel(nn.Module):
 
         h = x.to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last
         skips = []
-        for block in self.input_blocks:
-            h = self._run(block, h, emb, context, masks)
+        for block, full in zip(self.input_blocks, self._full_res_in):
+            with _full_res_span(full):
+                h = self._run(block, h, emb, context, masks)
             skips.append(h)
         h = self._run(self.middle_block, h, emb, context, masks)
-        for block in self.output_blocks:
-            h = self._run(block, torch.cat([h, skips.pop()], dim=1), emb, context, masks)
-        h = self.out[2](self.out[0](h, silu=True))
+        for block, full in zip(self.output_blocks, self._full_res_out):
+            with _full_res_span(full):
+                h = self._run(block, torch.cat([h, skips.pop()], dim=1), emb, context, masks)
+        with span("unet.full_res"):
+            h = self.out[2](self.out[0](h, silu=True))
         return h.permute(0, 2, 3, 1).float()
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _full_res_span(full: bool):
+    """The span ``unet.full_res`` over a block that ends at the input's
+    resolution; nothing over any other."""
+    return span("unet.full_res") if full else _NO_SPAN
 
 
 def count_params(params) -> int:

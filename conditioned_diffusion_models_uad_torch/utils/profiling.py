@@ -21,6 +21,7 @@ The spans:
 | ``train.all_reduce`` | ``train_step``: ``all_reduce_grads``, ``global_mean`` | the gradients' and the loss's exchange (nothing on one card) |
 | ``train.optimizer`` | ``train_step``: ``opt.step()`` | the update |
 | ``task.encode``, ``task.noise``, ``task.unet`` | ``models/tasks.py::DDPMTask.loss``, ``reconstruct_with_aux`` | the conditioning encoder; the noise fields; ``diffusion_call`` (or the sampler's chain) |
+| ``unet.full_res`` | ``models/unet.py::UNetModel.forward`` | each block that ends at the input's resolution (the input convolution, the first level's input blocks, the output blocks that end there) and the output head |
 | ``eval.load`` | ``orchestrate.py::run_stage`` | waiting on the subjects' iterator (its 'load' phase) |
 | ``eval.dispatch`` | ``run_stage``'s ``dispatch`` | a group's reconstruct-and-score launch (its 'recon' phase) |
 | ``eval.recon``, ``eval.score`` | ``eval/reconstruct.py::VolumeReconstructor._scored`` | the group's reconstruction; its scoring core (``group_eval_core``) |
@@ -31,6 +32,9 @@ The spans:
 group's first subject index. ``zero_grad`` opens the step outside these
 spans, under torch's own ``Optimizer.zero_grad#...`` range: it has to come
 before the backward, and callers read the gradients after the step.
+Counters beside the spans, counted whether or not a profiler records:
+``models/unet.py``'s ``GroupNorm32.fold_calls`` (the fold's calls on the
+card by route) and the K2 and K3 wrappers' ``.launches`` (``ops/``).
 """
 from __future__ import annotations
 
