@@ -713,6 +713,117 @@ def phase_k3():
     return out
 
 
+# the ResBlock output sum's sites timed by ``phase_residual``: (rows, C, side,
+# skip): the 192x192 cell's largest ([312, 128, 192, 192]: the encoder's
+# first-level ResBlocks, identity skip; the decoder's, a 384->128 skip
+# convolution) and ADM-256's ([104, 256, 256, 256]: identity; a 512->256
+# skip convolution)
+RESIDUAL_SITES = [(312, 128, 192, "identity"), (312, 128, 192, "conv"),
+                  (104, 256, 256, "identity"), (104, 256, 256, "conv")]
+
+
+def residual_record(b, c, side, skip, g):
+    """The ResBlock output sum's kernel (``residual_bias_sum``) alone at a
+    site [b, c, side, side] bf16, s and h the two convolutions' outputs
+    without bias (s = x for an identity skip): bit-equal to the parent's
+    chain on the same input (the biases' ``add_`` as cuDNN's convolution
+    does it, then the sum), launches counted; ms in turns (kernel, chain,
+    chain, kernel; CUDA events, the kernel into a buffer of its own so its
+    inputs stay), the kernel's device ms from the profiler, and its bound:
+    two reads and one write at HBM rate; beside it ATen's vectorised add of
+    the same two tensors (``library_ms``: the same bytes, no bias)."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.ops import residual as R
+
+    shape = (b, c, side, side)
+    s, h = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    b_skip = torch.randn(c, generator=g, device="cuda") if skip == "conv" else None
+    b_out = torch.randn(c, generator=g, device="cuda")
+    out = torch.empty_like(h)
+    before = R.residual_bias_sum.launches
+    got = R.residual_bias_sum(s, h, b_skip, b_out, out=out)
+    launches = R.residual_bias_sum.launches - before
+    bo = b_out.to(torch.bfloat16).reshape(1, c, 1, 1)
+    bs = None if b_skip is None else b_skip.to(torch.bfloat16).reshape(1, c, 1, 1)
+    s_work, h_work = s.clone(), h.clone()
+
+    def chain():
+        h_work.add_(bo)
+        if bs is not None:
+            s_work.add_(bs)
+        return s_work + h_work
+
+    want = s.clone() if bs is None else s.clone().add_(bs)
+    want += h.clone().add_(bo)
+    same = torch.equal(got, want)
+    require(launches == 1 and same,
+            f"residual {list(shape)} {skip}: {launches} launches, bit-equal {same}")
+    del want
+    fns = {"kernel": lambda: R.residual_bias_sum(s, h, b_skip, b_out, out=out),
+           "chain": chain}
+    readings = {"kernel": [], "chain": []}
+    for v in ("kernel", "chain", "chain", "kernel"):
+        readings[v].append(cuda_ms(fns[v], reps=10, warmup=1))
+    device_ms = profiled_kernel_ms(fns["kernel"], ("residual_kernel",), reps=10)
+    # CUDA events: ATen splits an add of more than 2^31 bytes into launches
+    library_ms = cuda_ms(lambda: torch.add(s, h, out=out), reps=10, warmup=1)
+    nbytes = 3 * s.numel() * s.element_size()
+    rec = {"name": "residual_bias_sum", "route": "cuda",
+           "source": f"{PKG}/csrc/residual.cu", "shape": list(shape), "dtype": "bfloat16",
+           "skip": skip, "bit_equal_to_chain": same, "launches_a_call": launches,
+           "ms": sum(readings["kernel"]) / 2, "ms_readings": readings["kernel"],
+           "device_ms": device_ms, "plain_ms": sum(readings["chain"]) / 2,
+           "plain_ms_readings": readings["chain"],
+           "plain": "the parent's chain: bias add_ (each conv), then the sum",
+           "library_ms": library_ms, "library": "ATen's vectorised add s + h (CUDA events)",
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    rec["share_of_bound"] = rec["bound_ms"] / device_ms
+    rec["hbm_tb_per_s"] = nbytes / device_ms / 1e9
+    rec["library_tb_per_s"] = nbytes / library_ms / 1e9
+    del s, h, out, s_work, h_work, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_residual():
+    """The ResBlock output sum's kernel (csrc/residual.cu) at the sites of
+    ``RESIDUAL_SITES`` (``residual_record``), with its ptxas report."""
+    import torch
+
+    from conditioned_diffusion_models_uad_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    recs = [residual_record(*site, g) for site in RESIDUAL_SITES]
+    ptxas = [line.strip() for line in _build.build_log.get("residual", "").splitlines()
+             if "registers" in line or "Compiling entry" in line or "spill" in line]
+    emit({"phase": "residual", "nvidia_smi": nvidia_smi(), "ptxas": ptxas, "results": recs})
+    return recs
+
+
+def residual_route(paths):
+    """The ResBlock output sum's route on each path: the share of its calls
+    on the card that took the kernel (``ResBlock.residual_calls``; None on
+    a path with no ResBlock). Requires the kernel at every call of an eval
+    path, one launch a call, and none in a train step."""
+    share = {}
+    for path, counts in paths.items():
+        fused, eager = counts["residual_fused"], counts["residual_eager"]
+        share[path] = fused / (fused + eager) if fused + eager else None
+        kind = _path_kind(path)
+        if kind == "eval":
+            require(eager == 0 and counts["residual_bias_sum"] == fused,
+                    f"{path}: a ResBlock sum off the kernel ({fused} fused, {eager} eager, "
+                    f"{counts['residual_bias_sum']} launches)")
+        elif kind == "train":
+            require(fused == 0 and counts["residual_bias_sum"] == 0,
+                    f"{path}: the residual kernel in a train step ({fused} fused calls, "
+                    f"{counts['residual_bias_sum']} launches)")
+    emit({"phase": "residual_route", "fused_share": share})
+    return share
+
+
 def _path_kind(path: str) -> str:
     """"train" for a path of train steps (autograd records every UNet call),
     "eval" for a path of forwards without grad (reconstructions, samplers, a
@@ -903,9 +1014,11 @@ def _launch_counters():
         fused_groupnorm_silu_coop,
         fused_groupnorm_silu_two_pass,
     )
+    from conditioned_diffusion_models_uad_torch.ops.residual import residual_bias_sum
     from conditioned_diffusion_models_uad_torch.ops.simplex_hash import fractal_noise_2d
 
     return {"fractal_noise_2d": fractal_noise_2d, "fused_attention": fused_attention,
+            "residual_bias_sum": residual_bias_sum,
             "attention_fwd_mma": attention_fwd_mma,
             "attention_fwd_mma_long": attention_fwd_mma_long,
             "attention_fwd_scalar": attention_fwd_scalar,
@@ -916,23 +1029,27 @@ def _launch_counters():
 
 
 def _zero_launches():
-    """Sets every wrapper's launch counter and ``GroupNorm32.fold_calls`` to 0."""
-    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32
+    """Sets every wrapper's launch counter, ``GroupNorm32.fold_calls`` and
+    ``ResBlock.residual_calls`` to 0."""
+    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32, ResBlock
 
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
     GroupNorm32.fold_calls.update(k3=0, eager=0)
+    ResBlock.residual_calls.update(fused=0, eager=0)
     return counters
 
 
 def _read_launches(counters):
-    """Each wrapper's launches, and the UNet norm sites' fold calls on the
-    card by route (``norm_fold_k3``, ``norm_fold_eager``)."""
-    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32
+    """Each wrapper's launches, the UNet norm sites' fold calls on the card
+    by route (``norm_fold_k3``, ``norm_fold_eager``) and the ResBlock output
+    sums' (``residual_fused``, ``residual_eager``)."""
+    from conditioned_diffusion_models_uad_torch.models.unet import GroupNorm32, ResBlock
 
     return {**{name: fn.launches for name, fn in counters.items()},
-            **{f"norm_fold_{route}": n for route, n in GroupNorm32.fold_calls.items()}}
+            **{f"norm_fold_{route}": n for route, n in GroupNorm32.fold_calls.items()},
+            **{f"residual_{route}": n for route, n in ResBlock.residual_calls.items()}}
 
 
 def _flagship_task(device, **kw):
@@ -3816,6 +3933,7 @@ def run_phases(gen, work: Path) -> int:
         k1 = timed(phase_k1)
         k2 = timed(phase_k2)
         k3 = timed(phase_k3)
+        resid = timed(phase_residual)
     slice_launches = timed(phase_slice_correctness)
     with paused(gen):
         launches = timed(phase_full_size)
@@ -3921,14 +4039,19 @@ def run_phases(gen, work: Path) -> int:
     k2_scalar["launches_by_path"]["slice_correctness_call"] = slice_launches[
         "attention_fwd_scalar"]
     # a fit epoch in its two halves, its validations and its train steps
-    norm_route({**{p: n for p, n in paths.items() if not p.endswith("fit_epoch")},
-                **files["fit_halves"], "slice_correctness_call": slice_launches})
+    route_paths = {**{p: n for p, n in paths.items() if not p.endswith("fit_epoch")},
+                   **files["fit_halves"], "slice_correctness_call": slice_launches}
+    norm_route(route_paths)
+    residual_route(route_paths)
+    resid[0]["launches_by_path"] = {path: counts["residual_bias_sum"]
+                                    for path, counts in paths.items()}
     emit({"phase": "timing", "iterative_and_patched_phases_s": new_phases_s,
           "variants_and_prepare_phases_s": variants_s,
           "run_from_files_pddpm_and_ddim_cli_s": files["added_cli_s"],
           "native_io_run_from_files_and_ddp_phases_s": phases10_s,
           "phase_s": phase_s})
-    emit({"kernels": [k1, k2_mma, k2_long, k2_scalar, k3_cluster, k3_coop, k3_two_pass]})
+    emit({"kernels": [k1, k2_mma, k2_long, k2_scalar, k3_cluster, k3_coop, k3_two_pass,
+                      *resid]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

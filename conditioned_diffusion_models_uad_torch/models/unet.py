@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, qk_scale
 from ..ops.fused_norm import fused_groupnorm_fold
+from ..ops.residual import channels_fit, residual_bias_sum
 from ..utils.profiling import span
 
 
@@ -53,8 +54,8 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
 class Conv2d(nn.Conv2d):
     """Conv2d with float32 parameters applied in the input's dtype."""
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
+    def forward(self, x, *, bias: bool = True):
+        b = None if self.bias is None or not bias else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
 
 
@@ -79,8 +80,33 @@ def takes_k3(x, params, f32_apply: bool, film=()) -> bool:
         return False
     if any(f.dtype != x.dtype for f in film):
         return False
-    return not (torch.is_grad_enabled()
-                and any(t.requires_grad for t in (x, *params, *film)))
+    return not records_grad(x, *params, *film)
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode on and one
+    of them requiring grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def takes_fused_residual(x, h, c_out: int, params) -> bool:
+    """Whether a ``ResBlock``'s output sum takes ``residual_bias_sum``: x
+    (the block's input, the skip's) and h (the out convolution's input) CUDA
+    tensors of one dtype, bfloat16 or float32, channels_last-contiguous, x
+    16-byte aligned (an identity skip hands x itself to the kernel), the
+    block's ``c_out`` channels a whole number of 16-byte vectors
+    (``ops/residual.py::channels_fit``), cuDNN on (which adds a
+    convolution's bias in a pass of its own, the rounding the kernel keeps)
+    and nothing for autograd to record. The convolutions' outputs are then
+    fresh channels_last tensors of one shape. Every other call takes the
+    eager chain."""
+    if x.device.type != "cuda" or h.dtype != x.dtype or not channels_fit(c_out, x.dtype):
+        return False
+    if not all(t.is_contiguous(memory_format=torch.channels_last) for t in (x, h)):
+        return False
+    if x.data_ptr() % 16 or not torch.backends.cudnn.enabled:
+        return False
+    return not records_grad(x, h, *params)
 
 
 class GroupNorm32(nn.Module):
@@ -218,7 +244,16 @@ class ResBlock(nn.Module):
     folded GroupNorm's coefficients with ``film_fold`` under
     ``norm_f32=False``); without it, it is added before that GroupNorm.
     ``keep`` (a bool mask of the block's output shape) applies dropout after
-    the second SiLU."""
+    the second SiLU.
+
+    The output is ``skip_connection(x) + out_layers[3](h)``: on the card,
+    wherever ``takes_fused_residual`` holds, both convolutions run without
+    their bias and ``residual_bias_sum`` adds the two biases and the sum in
+    one pass into the out convolution's output, with the eager chain's
+    roundings. ``ResBlock.residual_calls`` counts the sum's calls on the
+    card by route ("fused", "eager")."""
+
+    residual_calls = {"fused": 0, "eager": 0}
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, *, up: bool = False,
                  down: bool = False, norm_f32: bool = True, dropout: float = 0.0,
@@ -259,8 +294,22 @@ class ResBlock(nn.Module):
             h = self.out_layers[0](h, scale, shift, film_fold=self.film_fold, silu=True)
         if keep is not None:
             h = apply_dropout(h, keep, self.rate)
-        h = self.out_layers[3](h)
-        return self.skip_connection(x) + h
+        return self.residual(x, h)
+
+    def residual(self, x, h):
+        """``skip_connection(x) + out_layers[3](h)``, on the route
+        ``takes_fused_residual`` picks."""
+        out_conv, skip = self.out_layers[3], self.skip_connection
+        if x.device.type == "cuda":
+            params = (*out_conv.parameters(), *skip.parameters())
+            fused = takes_fused_residual(x, h, self.out_ch, params)
+            ResBlock.residual_calls["fused" if fused else "eager"] += 1
+            if fused:
+                conv_skip = isinstance(skip, Conv2d)
+                s = skip(x, bias=False) if conv_skip else x
+                return residual_bias_sum(s, out_conv(h, bias=False),
+                                         skip.bias if conv_skip else None, out_conv.bias)
+        return skip(x) + out_conv(h)
 
 
 def qkv_permutation(channels: int, heads: int) -> np.ndarray:

@@ -34,6 +34,7 @@ SOURCES: Dict[str, list] = {
     "attention_mma": [],
     "attention_mma_long": [],
     "fused_norm": [],
+    "residual": [],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
 """Times variants of the hand-written kernels against the shipped ones, in
 turns, on one card.
 
-    python -m conditioned_diffusion_models_uad_torch.utils.kernel_variants [k1] [k2] [k2long] [k3]
+    python -m conditioned_diffusion_models_uad_torch.utils.kernel_variants \
+        [k1] [k2] [k2long] [k3] [residual]
 
 A variant is a library's source, ``csrc/<library>.cu``, with a few textual
 changes (``VARIANTS[library][name]``), built with the library's nvcc flags
@@ -26,7 +27,11 @@ and power limit:
   [288, C], SiLU on), whether each output equals the shipped cluster
   kernel's bit for bit, and, from the ``phases`` variant's ``%globaltimer``
   stamps at the phase boundaries of every CTA, each phase's mean length and
-  the CTAs' mean time a sample beside the kernel's span.
+  the CTAs' mean time a sample beside the kernel's span;
+- the ResBlock output sum (``residual``): device ms a launch (torch.profiler)
+  at [312, 128, 192, 192] bf16 with and without a skip bias and at
+  [104, 256, 256, 256], the rate in TB/s of two reads and a write, and
+  whether each output equals the plain version bit for bit.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 from ..ops import _build
 from ..ops import attention as A
 from ..ops import fused_norm as F3
+from ..ops import residual as R
 from ..ops import simplex_hash as K1
 from .timing import cuda_ms, profiled_kernel_ms
 
@@ -294,8 +300,25 @@ K1_VARIANTS = {
     ],
 }
 
+# the ResBlock output sum (csrc/residual.cu): vectors in flight a thread,
+# blocks an SM, threads a block, cache hints
+# the ResBlock output sum (csrc/residual.cu): vectors a thread, threads a
+# block, cache hints
+RESIDUAL_VARIANTS = {
+    "unroll4": [("constexpr int kUnroll = 8;", "constexpr int kUnroll = 4;")],
+    "unroll2": [("constexpr int kUnroll = 8;", "constexpr int kUnroll = 2;")],
+    "threads128": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+    "streaming": [("      sv[u] = s[j];\n      hv[u] = h[j];",
+                   "      sv[u] = __ldcs(s + j);\n      hv[u] = __ldcs(h + j);"),
+                  ("      out[j] = sum_vec<T, kSkipBias>(",
+                   "      __stcs(out + j, sum_vec<T, kSkipBias>("),
+                  ("bs + chs[u] * V, bo + chs[u] * V);\n  }\n}",
+                   "bs + chs[u] * V, bo + chs[u] * V));\n  }\n}")],
+}
+
 VARIANTS = {"simplex_noise": K1_VARIANTS, "attention_mma": K2_VARIANTS,
-            "attention_mma_long": K2_LONG_VARIANTS, "fused_norm": K3_VARIANTS}
+            "attention_mma_long": K2_LONG_VARIANTS, "fused_norm": K3_VARIANTS,
+            "residual": RESIDUAL_VARIANTS}
 
 
 def apply_changes(src: str, changes) -> Optional[str]:
@@ -542,8 +565,60 @@ def k3_main(card) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# The ResBlock output sum
+# --------------------------------------------------------------------------- #
+def _residual_caller(lib):
+    fn = _fn(lib, "residual_bias_sum", R._ARGTYPES["residual_bias_sum"])
+
+    def call(s, h, b_skip, b_out, out):
+        b, c, hh, ww = s.shape
+        bs = None if b_skip is None else b_skip.data_ptr()
+        _build.check(fn(s.data_ptr(), h.data_ptr(), bs, b_out.data_ptr(), out.data_ptr(),
+                        b * hh * ww, c, 1, torch.cuda.current_stream(s.device).cuda_stream),
+                     "residual_bias_sum variant launch")
+        return out
+    return call
+
+
+def residual_main(card) -> None:
+    libs, skipped = build_variants("residual")
+    kernels = {"shipped": lambda s, h, bs, bo, out: R.residual_bias_sum(s, h, bs, bo,
+                                                                          out=out)}
+    kernels.update({name: _residual_caller(lib) for name, lib in libs.items()})
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for shape, skip in (((312, 128, 192, 192), False), ((312, 128, 192, 192), True),
+                        ((104, 256, 256, 256), False)):
+        s, h = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        c = shape[1]
+        b_skip = torch.randn(c, generator=g, device="cuda").to(torch.bfloat16) if skip else None
+        b_out = torch.randn(c, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.empty_like(h)
+        want = R.residual_bias_sum_reference(s, h, b_skip, b_out)
+        same = {name: torch.equal(fn(s, h, b_skip, b_out, out), want)
+                for name, fn in kernels.items()}
+        del want
+        ms = _in_turns(kernels, lambda fn: profiled_kernel_ms(
+            lambda: fn(s, h, b_skip, b_out, out), ("residual_kernel",), reps=20))
+        nbytes = 3 * s.numel() * s.element_size()
+        # the same bytes through ATen's vectorised add, beside the shipped
+        # kernel, both by CUDA events (ATen splits an add beyond 2^31 bytes)
+        events_ms = {"shipped": cuda_ms(lambda: kernels["shipped"](s, h, b_skip, b_out, out)),
+                     "aten_add": cuda_ms(lambda: torch.add(s, h, out=out))}
+        print(json.dumps({"kernel": "residual", "shape": list(shape), "skip_bias": skip,
+                          "device_ms": ms, "events_ms": events_ms,
+                          "tb_per_s": {k: [nbytes / m / 1e9 for m in v]
+                                       for k, v in ms.items()},
+                          "equal_to_plain": same, "skipped": skipped, "nvidia_smi": card}),
+              flush=True)
+        del s, h, out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
-    runs = {"k1": k1_main, "k2": k2_main, "k2long": k2long_main, "k3": k3_main}
+    runs = {"k1": k1_main, "k2": k2_main, "k2long": k2long_main, "k3": k3_main,
+            "residual": residual_main}
     picked = (sys.argv[1:] if argv is None else argv) or list(runs)
     if any(p not in runs for p in picked):
         raise SystemExit(f"kernel_variants: pick from {list(runs)}, got {picked}")

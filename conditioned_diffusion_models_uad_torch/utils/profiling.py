@@ -34,7 +34,9 @@ spans, under torch's own ``Optimizer.zero_grad#...`` range: it has to come
 before the backward, and callers read the gradients after the step.
 Counters beside the spans, counted whether or not a profiler records:
 ``models/unet.py``'s ``GroupNorm32.fold_calls`` (the fold's calls on the
-card by route) and the K2 and K3 wrappers' ``.launches`` (``ops/``).
+card by route) and ``ResBlock.residual_calls`` (the ResBlock output sums on
+the card by route), and the K2, K3 and residual wrappers' ``.launches``
+(``ops/``).
 """
 from __future__ import annotations
 
